@@ -1,0 +1,255 @@
+"""Triangulation: multi-view DLT, closed-form 3x3 solves, midpoint
+two-view triangulation, covariances and the sequential refinement (the
+port of ``coslam_tpu/geometry/triangulate.py``).
+
+The ``*_ln`` variants keep the JAX package's component-list form (3-vectors
+and 3x3 blocks as lists of [..., N] tensors): the per-point algebra is the
+same and parity with the reference is easiest to read that way.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from coslam_torch.geometry.camera import (projection_jacobian,
+                                          project_points, mahalanobis2_2d)
+
+
+def _floor_abs(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """x, with entries of magnitude < eps replaced by eps."""
+    return torch.where(torch.abs(x) < eps, torch.full_like(x, eps), x)
+
+
+def _dlt_rows(R, t, xn):
+    """Two DLT rows per view from normalized coords: [..., 2, 4]."""
+    P = torch.cat([R, t[..., :, None]], dim=-1)  # [..., 3, 4]
+    x = xn[..., 0:1, None]
+    y = xn[..., 1:2, None]
+    r1 = x * P[..., 2:3, :] - P[..., 0:1, :]
+    r2 = y * P[..., 2:3, :] - P[..., 1:2, :]
+    return torch.cat([r1, r2], dim=-2)
+
+
+def triangulate_multiview(Rs, ts, xns, mask) -> torch.Tensor:
+    """Masked multi-view DLT (smallest eigenvector of A^T A).
+
+    Rs: [..., V, 3, 3], ts: [..., V, 3], xns: [..., V, 2], mask: [..., V].
+    Returns X [..., 3]; meaningless with < 2 valid views."""
+    rows = _dlt_rows(Rs, ts, xns) * mask[..., None, None].to(Rs.dtype)
+    A = rows.reshape(*rows.shape[:-3], -1, 4)
+    AtA = torch.einsum("...ki,...kj->...ij", A, A)
+    _, V = torch.linalg.eigh(AtA)
+    h = V[..., :, 0]
+    wh = h[..., 3]
+    wh = torch.where(torch.abs(wh) < 1e-12, torch.sign(wh) * 1e-12 + 1e-15,
+                     wh)
+    return h[..., :3] / wh[..., None]
+
+
+def inv3x3_sym(A: torch.Tensor) -> torch.Tensor:
+    """Closed-form batched symmetric 3x3 inverse (cofactors)."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 1], A[..., 1, 2], A[..., 2, 2]
+    co00 = d * f - e * e
+    co01 = c * e - b * f
+    co02 = b * e - c * d
+    co11 = a * f - c * c
+    co12 = b * c - a * e
+    co22 = a * d - b * b
+    det = _floor_abs(a * co00 + b * co01 + c * co02, 1e-12)
+    inv = torch.stack([
+        torch.stack([co00, co01, co02], dim=-1),
+        torch.stack([co01, co11, co12], dim=-1),
+        torch.stack([co02, co12, co22], dim=-1),
+    ], dim=-2)
+    return inv / det[..., None, None]
+
+
+def triangulate_multiview_linear(Rs, ts, xns, mask) -> torch.Tensor:
+    """Inhomogeneous multi-view DLT via closed-form 3x3 normal equations."""
+    rows = _dlt_rows(Rs, ts, xns) * mask[..., None, None].to(Rs.dtype)
+    A = rows.reshape(*rows.shape[:-3], -1, 4)
+    M = A[..., :3]
+    b = -A[..., 3]
+    H = torch.einsum("...ki,...kj->...ij", M, M) \
+        + 1e-9 * torch.eye(3, dtype=A.dtype, device=A.device)
+    g = torch.einsum("...ki,...k->...i", M, b)
+    return torch.einsum("...ij,...j->...i", inv3x3_sym(H), g)
+
+
+def triangulate_multiview_ln(Rs, ts, xn, w):
+    """Multiview DLT for camera poses shared by every point.
+
+    Rs: [C, 3, 3], ts: [C, 3]; xn: [C, 2, P] normalized coords; w: [C, P]
+    weights. Returns (X [3, P], H: the lower-triangular 3x3 nested list of
+    [P] normal-matrix entries)."""
+    C = Rs.shape[0]
+    P = xn.shape[-1]
+    kw = dict(dtype=xn.dtype, device=xn.device)
+    H = [[torch.full((P,), 1e-9 if i == j else 0.0, **kw) for j in range(3)]
+         for i in range(3)]
+    g = [torch.zeros((P,), **kw) for _ in range(3)]
+    for c in range(C):
+        R, t = Rs[c], ts[c]
+        x, y = xn[c, 0], xn[c, 1]
+        wc = w[c].to(xn.dtype)
+        M1 = [x * R[2, j] - R[0, j] for j in range(3)]
+        M2 = [y * R[2, j] - R[1, j] for j in range(3)]
+        b1 = t[0] - x * t[2]
+        b2 = t[1] - y * t[2]
+        for i in range(3):
+            for j in range(i + 1):
+                H[i][j] = H[i][j] + wc * (M1[i] * M1[j] + M2[i] * M2[j])
+            g[i] = g[i] + wc * (M1[i] * b1 + M2[i] * b2)
+    return torch.stack(solve3x3_sym_ln(H, g)), H
+
+
+def solve3x3_sym_ln(H, g):
+    """Solve the symmetric 3x3 system H x = g with entries as tensors.
+    H: 3x3 nested list (lower triangle filled); g: 3 tensors."""
+    a00, a01, a02 = H[0][0], H[1][0], H[2][0]
+    a11, a12, a22 = H[1][1], H[2][1], H[2][2]
+    c00 = a11 * a22 - a12 * a12
+    c01 = a02 * a12 - a01 * a22
+    c02 = a01 * a12 - a02 * a11
+    c11 = a00 * a22 - a02 * a02
+    c12 = a01 * a02 - a00 * a12
+    c22 = a00 * a11 - a01 * a01
+    det = _floor_abs(a00 * c00 + a01 * c01 + a02 * c02, 1e-18)
+    x0 = (c00 * g[0] + c01 * g[1] + c02 * g[2]) / det
+    x1 = (c01 * g[0] + c11 * g[1] + c12 * g[2]) / det
+    x2 = (c02 * g[0] + c12 * g[1] + c22 * g[2]) / det
+    return [x0, x1, x2]
+
+
+def inv3x3_sym_ln(H):
+    """Inverse of a symmetric 3x3 with tensor entries (lower triangle
+    read): a full symmetric 3x3 nested list."""
+    a00, a01, a02 = H[0][0], H[1][0], H[2][0]
+    a11, a12, a22 = H[1][1], H[2][1], H[2][2]
+    c00 = a11 * a22 - a12 * a12
+    c01 = a02 * a12 - a01 * a22
+    c02 = a01 * a12 - a02 * a11
+    c11 = a00 * a22 - a02 * a02
+    c12 = a01 * a02 - a00 * a12
+    c22 = a00 * a11 - a01 * a01
+    det = _floor_abs(a00 * c00 + a01 * c01 + a02 * c02, 1e-18)
+    i00, i01, i02 = c00 / det, c01 / det, c02 / det
+    i11, i12, i22 = c11 / det, c12 / det, c22 / det
+    return [[i00, i01, i02], [i01, i11, i12], [i02, i12, i22]]
+
+
+def triangulate_two_view(R1, t1, R2, t2, xn1, xn2) -> torch.Tensor:
+    """binTriangulate equivalent. All args broadcast; xn* are [..., 2]."""
+    lead1, lead2 = xn1.shape[:-1], xn2.shape[:-1]
+    Rs = torch.stack([R1.expand(*lead1, 3, 3), R2.expand(*lead2, 3, 3)],
+                     dim=-3)
+    ts = torch.stack([t1.expand(*lead1, 3), t2.expand(*lead2, 3)], dim=-2)
+    xns = torch.stack([xn1, xn2], dim=-2)
+    mask = torch.ones(xns.shape[:-1], dtype=torch.bool, device=xns.device)
+    return triangulate_multiview(Rs, ts, xns, mask)
+
+
+def triangulate_two_view_midpoint(R1, t1, R2, t2, xn1, xn2):
+    """Closed-form midpoint triangulation. Returns (X [..., 3], s1, s2,
+    parallax_cos): signed ray parameters and the cosine of the ray angle."""
+    c1 = -torch.einsum("...ji,...j->...i", R1, t1)
+    c2 = -torch.einsum("...ji,...j->...i", R2, t2)
+    one1 = torch.ones_like(xn1[..., :1])
+    one2 = torch.ones_like(xn2[..., :1])
+    d1 = torch.einsum("...ji,...j->...i", R1, torch.cat([xn1, one1], -1))
+    d2 = torch.einsum("...ji,...j->...i", R2, torch.cat([xn2, one2], -1))
+    u1 = d1 / torch.clamp(torch.linalg.norm(d1, dim=-1, keepdim=True),
+                          min=1e-12)
+    u2 = d2 / torch.clamp(torch.linalg.norm(d2, dim=-1, keepdim=True),
+                          min=1e-12)
+    b = c2 - c1
+    d12 = torch.sum(u1 * u2, -1)
+    bd1 = torch.sum(b * u1, -1)
+    bd2 = torch.sum(b * u2, -1)
+    den = _floor_abs(1.0 - d12 * d12, 1e-9)
+    s = (bd1 - d12 * bd2) / den
+    r = (d12 * bd1 - bd2) / den
+    X = 0.5 * (c1 + s[..., None] * u1 + c2 + r[..., None] * u2)
+    return X, s, r, d12
+
+
+def triangulate_two_view_midpoint_ln(R1, t1, R2, t2, x1, y1, x2, y2):
+    """Midpoint triangulation with 3-vectors as component tensors.
+
+    R1/R2: [..., 3, 3], t1/t2: [..., 3] (leading dims broadcast against
+    the coordinates' leading dims); x1, y1, x2, y2: [..., N] normalized
+    coordinates. Returns (X: 3 x [..., N], s1, s2, parallax_cos) as
+    ``triangulate_two_view_midpoint``."""
+    def cam_center(R, t):
+        return [-(R[..., 0, i] * t[..., 0] + R[..., 1, i] * t[..., 1]
+                  + R[..., 2, i] * t[..., 2])[..., None] for i in range(3)]
+
+    def ray(R, x, y):
+        d = [R[..., 0, i][..., None] * x + R[..., 1, i][..., None] * y
+             + R[..., 2, i][..., None] for i in range(3)]
+        n = torch.clamp(torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]),
+                        min=1e-12)
+        return [di / n for di in d]
+
+    c1, c2 = cam_center(R1, t1), cam_center(R2, t2)
+    u1, u2 = ray(R1, x1, y1), ray(R2, x2, y2)
+    b = [c2[i] - c1[i] for i in range(3)]
+    d12 = u1[0] * u2[0] + u1[1] * u2[1] + u1[2] * u2[2]
+    bd1 = b[0] * u1[0] + b[1] * u1[1] + b[2] * u1[2]
+    bd2 = b[0] * u2[0] + b[1] * u2[1] + b[2] * u2[2]
+    den = _floor_abs(1.0 - d12 * d12, 1e-9)
+    s = (bd1 - d12 * bd2) / den
+    r = (d12 * bd1 - bd2) / den
+    X = [0.5 * (c1[i] + s * u1[i] + c2[i] + r * u2[i]) for i in range(3)]
+    return X, s, r, d12
+
+
+def reproj_errors(K, R, t, X, px) -> torch.Tensor:
+    """Euclidean reprojection error in pixels (reprojErrorSingle)."""
+    return torch.linalg.norm(project_points(K, R, t, X) - px, dim=-1)
+
+
+def is_at_camera_back(R, t, X) -> torch.Tensor:
+    """True where the point has non-positive depth in the camera."""
+    z = torch.einsum("...j,...j->...", R[..., 2, :], X) + t[..., 2]
+    return z <= 0.0
+
+
+def triangulation_cov(Ks, Rs, ts, X, mask, pixel_var: float = 1.0):
+    """getTriangulateCovMat: pixel_var * (sum_v J_v^T J_v)^{-1}.
+    Ks/Rs: [..., V, 3, 3], ts: [..., V, 3], X: [..., 3], mask: [..., V]."""
+    J = projection_jacobian(Ks, Rs, ts, X[..., None, :])  # [..., V, 2, 3]
+    J = J * mask[..., None, None].to(J.dtype)
+    H = torch.einsum("...vki,...vkj->...ij", J, J)
+    H = H + 1e-9 * torch.eye(3, dtype=H.dtype, device=H.device)
+    return pixel_var * inv3x3_sym(H)
+
+
+def seq_triangulate_update(K, R, t, px_undist, X, cov,
+                           pixel_var: float = 1.0,
+                           gate_maha2: float | None = None):
+    """One information-filter step folding a new observation into
+    (X, cov) (seqTriangulate). Returns (X_new, cov_new, maha2); with
+    ``gate_maha2`` updates are suppressed where maha2 > gate_maha2."""
+    pred = project_points(K, R, t, X)
+    r = px_undist - pred
+    J = projection_jacobian(K, R, t, X)                # [..., 2, 3]
+    eye2 = torch.eye(2, dtype=X.dtype, device=X.device)
+    S = J @ cov @ J.transpose(-1, -2) + pixel_var * eye2
+    maha2 = mahalanobis2_2d(r, S)
+    a, b, c = S[..., 0, 0], S[..., 0, 1], S[..., 1, 1]
+    det = _floor_abs(a * c - b * b, 1e-12)
+    Sinv = torch.stack([
+        torch.stack([c / det, -b / det], dim=-1),
+        torch.stack([-b / det, a / det], dim=-1),
+    ], dim=-2)
+    Kg = cov @ J.transpose(-1, -2) @ Sinv              # [..., 3, 2]
+    X_new = X + torch.einsum("...ij,...j->...i", Kg, r)
+    eye3 = torch.eye(3, dtype=X.dtype, device=X.device)
+    cov_new = (eye3 - Kg @ J) @ cov
+    if gate_maha2 is not None:
+        ok = (maha2 <= gate_maha2)[..., None]
+        X_new = torch.where(ok, X_new, X)
+        cov_new = torch.where(ok[..., None], cov_new, cov)
+    return X_new, cov_new, maha2

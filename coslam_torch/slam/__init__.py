@@ -1,0 +1,1 @@
+"""slam (PyTorch port; see the same-named package of coslam_tpu)."""
