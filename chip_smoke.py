@@ -1,11 +1,12 @@
 """Chip smoke test of coslam_torch on one CUDA card.
 
-Builds the CUDA kernels from coslam_torch/csrc, holds each against its
-plain PyTorch twin at the main path's shapes and times both, then drives
-the monocular engine end to end at the production configuration (480x640,
-4 KLT levels, 1024 features, 8192 map points) over 100 rendered frames of
-the synthetic room and checks bootstrap, keyframes, BA, finiteness, the
-Sim(3)-aligned ATE, and that both kernels ran on that path.
+Builds the CUDA kernels from coslam_torch/csrc (build_pyramid, klt_track,
+extract_windows), holds each against its plain PyTorch twin at the main
+path's shapes and times both, then drives the monocular engine end to end
+at the production configuration (480x640, 4 KLT levels, 1024 features,
+8192 map points) over 100 rendered frames of the synthetic room and
+checks bootstrap, keyframes, BA, finiteness, the Sim(3)-aligned ATE, and
+that every kernel ran on that path.
 
 Before the main path, a short run at the CPU tests' size holds the
 engine on the card against the same engine on the CPU (the plain
@@ -14,8 +15,9 @@ package).
 
 After it, torch.profiler traces a few tracked frames of a fresh run at
 the same configuration: device-busy time, the device's idle share and
-kernel launches per frame; ``--profile-table PATH`` also writes the
-operator table to PATH.
+kernel launches per frame, in all and inside the ``build_pyramid`` and
+``klt_track`` ranges; ``--profile-table PATH`` also writes the operator
+table to PATH.
 
     python3 chip_smoke.py [--profile-table PATH]
 
@@ -44,7 +46,13 @@ FRAMES = 100
 N_FEAT = 1024
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
-K1_TOL = 1e-3
+# klt_track against its plain twin (the bands of tests/test_torch_ops.py::
+# test_klt_tracked_positions): the 121-term sums are taken in another
+# order, which moves positions by float32 rounding and can flip a
+# feature that sits on a threshold (0.1 px convergence, search range, SSD)
+KLT_FLIP_SHARE = 0.005           # of the features valid on input
+KLT_POS_TOL, KLT_GAIN_TOL = 1e-3, 1e-4
+KLT_SSD_RTOL, KLT_SSD_ATOL = 1e-3, 1e-2
 
 
 def log(msg=""):
@@ -71,6 +79,26 @@ def device_time_ms(fn, reps: int = 20, trials: int = 25) -> float:
         e = torch.cuda.Event(enable_timing=True)
         s.record()
         g.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / reps)
+    return float(np.median(times))
+
+
+def eager_time_ms(fn, reps: int = 5, trials: int = 5) -> float:
+    """Device time of one call of ``fn`` run eagerly: CUDA events around
+    ``reps`` calls, the median over ``trials``. For code that cannot be
+    captured in a CUDA graph (the plain KLT builds small host tensors);
+    it includes the gaps the host's launch path leaves between kernels."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            fn()
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e) / reps)
@@ -112,55 +140,167 @@ def phase_build():
                 log(f"    {line.strip()}")
 
 
+def covered_pixels(h: int, w: int, C: int, base, G: int, dev) -> int:
+    """Distinct pixels of a [C, h, w] image that G x G windows at the
+    origins base [C, N, 2] (clamped, as every window kernel does) cover."""
+    cover = torch.zeros((C, h, w), dtype=torch.bool, device=dev)
+    x0 = base[..., 0].long().clamp(0, w - G)
+    y0 = base[..., 1].long().clamp(0, h - G)
+    g = torch.arange(G, device=dev)
+    cam = torch.arange(C, device=dev)[:, None, None, None]
+    cover[cam, (y0[..., None, None] + g[:, None]),
+          (x0[..., None, None] + g[None, :])] = True
+    return int(cover.sum())
+
+
+def klt_work(pyr_prev, pyr_cur, pos, cfg):
+    """Bytes and operations one klt_track call needs on these inputs: the
+    distinct pixels its template and target windows cover on every kept
+    level (the plain twin's level loop, replayed to find each level's
+    target origins), the inputs and the outputs; ~17 flop per patch pixel
+    per Gauss-Newton iteration this data runs (resample 7, gain 4,
+    residual 2, gradient sums 4) and ~31 per patch pixel per level
+    (shifted template, gradients, Hessian, final residual)."""
+    from coslam_torch.ops.klt import _MARGIN, _kept_levels, _track_level
+    r = cfg.window_radius
+    S = 2 * r + 1
+    G, GT = S + 1 + 2 * _MARGIN, S + 3
+    C, N = pos.shape[:2]
+    dev = pos.device
+    pos_f = pos.reshape(C * N, 2)
+    levels = _kept_levels(pyr_cur, cfg)
+    q = pos_f * (0.5 ** levels[0])
+    g = torch.ones(C * N, device=dev)
+    px, n_it, prev = 0, 0, levels[0]
+    for li, lv in enumerate(levels):
+        if li > 0:
+            q = q * (2.0 ** (prev - lv))
+        h, w = pyr_cur.imgs[lv].shape[1:]
+        pos_t = pos_f * (0.5 ** lv)
+        bt = torch.floor(pos_t - r).to(torch.int32) - 1
+        b = torch.floor(q - r).to(torch.int32) - _MARGIN
+        px += covered_pixels(h, w, C, bt.reshape(C, N, 2), GT, dev)
+        px += covered_pixels(h, w, C, b.reshape(C, N, 2), G, dev)
+        q, g, _, _, it = _track_level(pyr_prev.imgs[lv], pyr_cur.imgs[lv],
+                                      pos_t, q, g, cfg)
+        n_it += int(it.sum())
+        prev = lv
+    # inputs pos (8 B) + valid (1 B); outputs pos, valid, ssd, gain
+    nbytes = px * 4 + C * N * (8 + 1) + C * N * (8 + 1 + 4 + 4)
+    flops = S * S * (17 * n_it + 31 * len(levels) * C * N)
+    return nbytes, flops, n_it
+
+
+def klt_agreement(got, want, valid_in) -> dict:
+    """Flips of `valid` among the features valid on input, and the worst
+    differences where both versions keep the feature."""
+    gv, wv = got.valid.cpu(), want.valid.cpu()
+    vin = valid_in.cpu()
+    both = gv & wv
+    pos_err = float((got.pos - want.pos).abs().cpu()[both].max())
+    gain_err = float((got.gain - want.gain).abs().cpu()[both].max())
+    d_ssd = (got.ssd - want.ssd).abs().cpu()[both]
+    ssd_lim = KLT_SSD_ATOL + KLT_SSD_RTOL * want.ssd.abs().cpu()[both]
+    return dict(flips=int((gv != wv)[vin].sum()), n_valid_in=int(vin.sum()),
+                n_both=int(both.sum()), pos_err=pos_err, gain_err=gain_err,
+                ssd_excess=float((d_ssd - ssd_lim).max()))
+
+
 def phase_kernels():
     """Each kernel against its plain twin at the main path's shapes."""
-    from coslam_torch.ops.pyramid import pyramid_level, pyramid_level_plain
+    from coslam_torch.config import KLTConfig
+    from coslam_torch.io.synthetic import (make_room, orbit_trajectory,
+                                           render_sequence)
+    from coslam_torch.ops.corners import detect_corners
+    from coslam_torch.ops.klt import klt_track, klt_track_plain
     from coslam_torch.ops.patches import (extract_windows,
                                           extract_windows_plain)
+    from coslam_torch.ops.pyramid import build_pyramid, build_pyramid_plain
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    levels = [(H >> lv, W >> lv) for lv in range(4)]
-    res = {"pyramid_level": [], "extract_windows": []}
+    n_lv = 4
+    levels = [(H >> lv, W >> lv) for lv in range(n_lv)]
+    res = {"build_pyramid": [], "klt_track": [], "extract_windows": []}
 
-    # K1: level 0 with derivatives, levels 1-3 blur only
-    for lv, (h, w) in enumerate(levels):
-        derivs = lv == 0
-        img = (torch.rand((1, h, w), generator=gen) * 255).to(dev)
-        got = pyramid_level(img, derivs)
-        ref = pyramid_level_plain(img, derivs)
-        got = got if derivs else (got,)
-        ref = ref if derivs else (ref,)
+    # build_pyramid: every level bit for bit, on two rendered frames
+    K = np.array([[500.0, 0, W / 2], [0, 500.0, H / 2], [0, 0, 1]],
+                 np.float32)
+    Rs, ts = orbit_trajectory(3, forward=0.04)
+    frames = render_sequence(make_room(np.random.default_rng(0), size=10.0),
+                             K, Rs, ts, H, W, device=dev)
+    img0, img2 = frames[0][None].contiguous(), frames[2][None].contiguous()
+    pyrs, err = [], 0.0
+    for img in (img0, img2):
+        got, want = build_pyramid(img, n_lv), build_pyramid_plain(img, n_lv)
         torch.cuda.synchronize()
-        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-        n_out = 3 if derivs else 1
-        nbytes = img.numel() * 4 * (1 + n_out)
-        flops = img.numel() * (18 + (20 if derivs else 0))
-        b_ms, b_by = bound_ms(nbytes, flops)
-        ms = device_time_ms(lambda: pyramid_level(img, derivs))
-        plain_ms = device_time_ms(lambda: pyramid_level_plain(img, derivs))
-        lib_ms = None
-        if not derivs:
-            # one library call computing the same blur: a 5x5 binomial
-            # convolution with edge-replicate padding (cuDNN, TF32 off)
-            k1 = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], device=dev) / 16.0
-            conv = torch.nn.Conv2d(1, 1, 5, padding=2, bias=False,
-                                   padding_mode="replicate").to(dev)
-            with torch.no_grad():
-                conv.weight.copy_((k1[:, None] * k1[None, :])[None, None])
-                x4 = img[None]
-                lib_err = float((conv(x4)[0] - ref[0]).abs().max())
-                lib_ms = device_time_ms(lambda: conv(x4))
-            log(f"  (conv2d yardstick differs from the plain blur by "
-                f"{lib_err:.2e})")
-        if err > K1_TOL:
-            raise AssertionError(f"pyramid_level {h}x{w}: max abs err {err}")
-        rec = dict(shape=f"[1,{h},{w}]", derivs=derivs, max_abs_err=err,
-                   ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=lib_ms)
-        res["pyramid_level"].append(rec)
-        log(f"K1 pyramid_level {rec}")
+        for a, b in zip(got.imgs + got.dxs + got.dys,
+                        want.imgs + want.dxs + want.dys):
+            err = max(err, float((a - b).abs().max()))
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"build_pyramid {tuple(a.shape)}: not bit-identical, max "
+                    f"abs err {err}")
+        pyrs.append(got)
+    px = [h * w for h, w in levels]
+    nbytes = px[0] * 4 * 3 + sum(px) * 4     # input, dx, dy; every level
+    flops = sum(p * 18 for p in px) + px[0] * 20 + sum(px[1:]) * 4
+    b_ms, b_by = bound_ms(nbytes, flops)
+    rec = dict(shape=f"[1,{H},{W}] {n_lv} levels", max_abs_err=err,
+               ms=device_time_ms(lambda: build_pyramid(img0, n_lv)),
+               plain_ms=device_time_ms(
+                   lambda: build_pyramid_plain(img0, n_lv)),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    res["build_pyramid"].append(rec)
+    log(f"build_pyramid {rec}")
 
-    # K2: G=14 and G=24 on each level (KLT), G=12 on level 0 (NCC)
+    # klt_track: frame 0 -> frame 2 of the main path's trajectory, the
+    # production config's 1024 corners, with slots near the border,
+    # slots invalid on input and one NaN position, as the engine's track
+    # table holds them
+    cfg = KLTConfig(n_levels=n_lv)
+    det = detect_corners(pyrs[0].imgs[0], pyrs[0].dxs[0], pyrs[0].dys[0],
+                         cfg, N_FEAT)
+    pos = det.pos.clone()
+    valid = det.valid.clone()
+    k = torch.arange(N_FEAT, device=dev)
+    pos[0, k % 97 == 3] = torch.tensor([1.5, 3.0], device=dev)
+    pos[0, k % 97 == 5] = torch.tensor([W - 4.5, H - 9.25], device=dev)
+    valid[0, k % 10 == 7] = False
+    pos[0, 11] = float("nan")
+    valid[0, 11] = False
+    for with_gain in (True, False):
+        cfg = KLTConfig(n_levels=n_lv, track_with_gain=with_gain)
+        got = klt_track(pyrs[0], pyrs[1], pos, valid, cfg)
+        want = klt_track_plain(pyrs[0], pyrs[1], pos, valid, cfg)
+        torch.cuda.synchronize()
+        agr = klt_agreement(got, want, valid)
+        log(f"klt_track gain={with_gain}: {agr}")
+        bad = (agr["flips"] > KLT_FLIP_SHARE * agr["n_valid_in"]
+               or agr["n_both"] < 0.5 * agr["n_valid_in"]
+               or agr["pos_err"] > KLT_POS_TOL
+               or agr["gain_err"] > KLT_GAIN_TOL or agr["ssd_excess"] > 0
+               or bool(got.valid[0, 11]))
+        if bad:
+            raise AssertionError(f"klt_track gain={with_gain} against its "
+                                 f"plain twin: {agr}")
+        if not with_gain:
+            continue
+        nbytes, flops, n_it = klt_work(pyrs[0], pyrs[1], pos, cfg)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        rec = dict(shape=f"[1,{H},{W}] N={N_FEAT} {n_lv} levels",
+                   max_abs_err=agr["pos_err"], iterations=n_it,
+                   ms=device_time_ms(
+                       lambda: klt_track(pyrs[0], pyrs[1], pos, valid, cfg)),
+                   plain_ms=eager_time_ms(
+                       lambda: klt_track_plain(pyrs[0], pyrs[1], pos, valid,
+                                               cfg)),
+                   bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+                   bound_flops=flops, library_ms=None, **agr)
+        res["klt_track"].append(rec)
+        log(f"klt_track {rec}")
+
+    # extract_windows: G=14 and G=24 on each level (the plain KLT), G=12
+    # on level 0 (NCC, the kernel's one call per tracked frame)
     shapes = [(lv, G) for lv in range(4) for G in (14, 24)] + [(0, 12)]
     for lv, G in shapes:
         h, w = levels[lv]
@@ -177,19 +317,17 @@ def phase_kernels():
         err = float((got - ref).abs().max())
         # bytes this data needs: the distinct image pixels the windows
         # cover, the origins, and the output
-        cover = torch.zeros((h, w), dtype=torch.bool, device=dev)
-        x0 = base[0, :, 0].long().clamp(0, w - G)
-        y0 = base[0, :, 1].long().clamp(0, h - G)
-        g = torch.arange(G, device=dev)
-        cover[(y0[:, None, None] + g[None, :, None]),
-              (x0[:, None, None] + g[None, None, :])] = True
-        nbytes = int(cover.sum()) * 4 + base.numel() * 4 + got.numel() * 4
+        nbytes = covered_pixels(h, w, 1, base, G, dev) * 4 + \
+            base.numel() * 4 + got.numel() * 4
         b_ms, b_by = bound_ms(nbytes, 0.0)
         ms = device_time_ms(lambda: extract_windows(imgs, base, G))
         plain_ms = device_time_ms(
             lambda: extract_windows_plain(imgs, base, G))
         # one library call computing the same copy: torch.gather on the
         # flat index (index precomputed outside the timed call)
+        x0 = base[0, :, 0].long().clamp(0, w - G)
+        y0 = base[0, :, 1].long().clamp(0, h - G)
+        g = torch.arange(G, device=dev)
         idx = ((y0[:, None, None] + g[None, :, None]) * w
                + (x0[:, None, None] + g[None, None, :])).reshape(1, -1)
         flat = imgs.reshape(1, -1)
@@ -208,10 +346,13 @@ def phase_main_path(card: str):
     from coslam_torch.io.ate import ate_rmse, camera_centers
     from coslam_torch.io.synthetic import (make_room, orbit_trajectory,
                                            render_sequence)
+    from coslam_torch.ops.klt import klt_track
     from coslam_torch.ops.patches import extract_windows
-    from coslam_torch.ops.pyramid import pyramid_level
+    from coslam_torch.ops.pyramid import build_pyramid
     from coslam_torch.slam.pipeline import CoSlamEngine
 
+    counters = {"build_pyramid": build_pyramid, "klt_track": klt_track,
+                "extract_windows": extract_windows}
     cfg = SlamConfig(num_cameras=1, image_height=H, image_width=W,
                      klt=KLTConfig(n_levels=4),
                      cap=CapacityConfig(max_features=N_FEAT,
@@ -229,8 +370,8 @@ def phase_main_path(card: str):
     log(f"rendered {FRAMES} frames {tuple(frames.shape)} in "
         f"{time.perf_counter() - t0:.2f} s")
     eng = CoSlamEngine(cfg, K, kc, device="cuda")
-    pyramid_level.launches = 0
-    extract_windows.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     frame_ms = []
     t_run = time.perf_counter()
     for f in range(FRAMES):
@@ -240,8 +381,7 @@ def phase_main_path(card: str):
         frame_ms.append((time.perf_counter() - t0) * 1e3)
     Rs, ts = eng.trajectory(0, correct=True)
     run_s = time.perf_counter() - t_run
-    launches = {"pyramid_level": pyramid_level.launches,
-                "extract_windows": extract_windows.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     ids, xyz, cov = eng.map_points()
     c_gt = camera_centers(Rs_gt, ts_gt)
     path = float(np.linalg.norm(np.diff(c_gt, axis=0), axis=-1).sum())
@@ -267,8 +407,7 @@ def phase_main_path(card: str):
         "trajectory shape": Rs.shape == (FRAMES, 3, 3)
         and ts.shape == (FRAMES, 3),
         "ATE < 2% of path": ate < 0.02 * path,
-        "pyramid_level launched": launches["pyramid_level"] > 0,
-        "extract_windows launched": launches["extract_windows"] > 0,
+        **{f"{name} launched": n > 0 for name, n in launches.items()},
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
@@ -358,6 +497,36 @@ def phase_profile(cfg, K, frames, card: str, table_path):
             busy_us += e.self_device_time_total
             launches += e.count
     busy_ms = busy_us / 1e3 / n
+
+    # launches inside a range: the CUDA runtime calls (cudaLaunchKernel,
+    # cudaLaunchCooperativeKernel, cudaMemcpyAsync, ...) nested in it on the
+    # host, and the device activities they started, matched by CUPTI
+    # correlation id (the kernels of a ctypes library are attached to no
+    # operator, so the range's own device time does not see them)
+    events = prof.events()
+    on_device = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            on_device.setdefault(e.id, []).append(e)
+
+    def runtime_calls(e):
+        out = [e] if e.name.startswith("cu") else []
+        for ch in e.cpu_children:
+            out += runtime_calls(ch)
+        return out
+    ranges = {}
+    for name in ("build_pyramid", "klt_track"):
+        evs = [e for e in events if e.name == name
+               and e.device_type == torch.autograd.DeviceType.CPU]
+        acts = [a for e in evs for rt in runtime_calls(e)
+                for a in on_device.get(rt.id, [])]
+        ranges[name] = dict(
+            calls_per_frame=len(evs) / n,
+            launches_per_frame=len(acts) / n,
+            device_ms_per_frame=sum(a.time_range.elapsed_us()
+                                    for a in acts) / 1e3 / n,
+            kernels=sorted({a.name[:60] for a in acts}))
+
     if table_path:
         os.makedirs(os.path.dirname(os.path.abspath(table_path)),
                     exist_ok=True)
@@ -373,6 +542,8 @@ def phase_profile(cfg, K, frames, card: str, table_path):
         f"busy {busy_ms:.3f} ms/frame, idle share "
         f"{1.0 - busy_ms / wall_ms:.4f}, {launches / n:.1f} kernel "
         f"launches/frame; card {card}")
+    for name, rec in ranges.items():
+        log(f"profile: inside {name}: {rec}")
 
 
 def main():
@@ -388,17 +559,20 @@ def main():
     phase_profile(*run, smi, args.profile_table)
     repo = "coslam_tpu"
     meta = {
-        "pyramid_level": dict(
-            route="cuda", source="coslam_torch/csrc/pyramid_level.cu",
+        "build_pyramid": dict(
+            route="cuda", source="coslam_torch/csrc/build_pyramid.cu",
             replaces=f"{repo}/ops/pyramid_pallas.py:107"),
+        "klt_track": dict(
+            route="cuda", source="coslam_torch/csrc/klt_track.cu",
+            replaces=f"{repo}/ops/patches.py:198"),
         "extract_windows": dict(
             route="cuda", source="coslam_torch/csrc/extract_windows.cu",
             replaces=f"{repo}/ops/patches.py:198"),
     }
     kernels = []
     for kname, recs in per_shape.items():
-        head = recs[0] if kname == "pyramid_level" else \
-            next(r for r in recs if r["shape"].startswith(f"[1,{H},{W}] G=24"))
+        head = recs[0] if kname != "extract_windows" else \
+            next(r for r in recs if r["shape"].startswith(f"[1,{H},{W}] G=12"))
         kernels.append(dict(
             name=kname, **meta[kname], launches=launches[kname],
             max_abs_err=max(r["max_abs_err"] for r in recs),

@@ -25,12 +25,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signature of each kernel library: argtypes (every pointer and the
-# stream as c_void_p: ctypes would otherwise pass them as 32-bit ints)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of each kernel library: argtypes (every pointer, host array
+# of pointers and the stream as c_void_p: ctypes would otherwise pass them
+# as 32-bit ints)
 SIGNATURES = {
-    # pyramid_level(img, sm, dx, dy, C, H, W, derivs, stream)
-    "pyramid_level": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # build_pyramid(img, dx, dy, sm[], C, H, W, n_levels, stream)
+    "build_pyramid": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # klt_track(prev[], cur[], levels[], n_levels, pos, valid, pos_out,
+    #           valid_out, ssd_out, gain_out, C, N, H, W, radius, n_iter,
+    #           with_gain, lam, conv, border, ssd_thr, stream)
+    "klt_track": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                  _I, _I, _I, _F, _F, _F, _F, _P],
     # extract_windows(imgs, base, out, C, H, W, N, G, stream)
     "extract_windows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -107,6 +113,17 @@ def library(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def pointer_array(ptrs):
+    """A host array of device pointers (ints) for a ``T* const*``
+    parameter; the kernel's host code reads it before the call returns."""
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def int_array(vals):
+    """A host array of ints for a ``const int*`` parameter."""
+    return (ctypes.c_int * len(vals))(*vals)
 
 
 def check(name: str, rc: int) -> None:

@@ -3,7 +3,7 @@ on batched images [C, H, W] f32 — the port of ``coslam_tpu/ops/image.py``.
 
 Every separable pass edge-replicates ITS OWN input (``_conv1d`` reads the
 input at clamped coordinates), and sums its taps in order, one multiply
-and one add at a time. The pyramid kernel (csrc/pyramid_level.cu) follows
+and one add at a time. The pyramid kernel (csrc/build_pyramid.cu) follows
 the same convention and order, so it agrees with these filters over the
 whole image, border frame included.
 """

@@ -2,18 +2,24 @@
 port of ``coslam_tpu/ops/klt.py``).
 
 Inverse-compositional Gauss-Newton on pure translation: per level, an
-integer-aligned template window and a target window around each feature
-come from ``extract_windows`` (the CUDA window kernel on the card); each
-iteration selects the [S+1, S+1] integer sub-window at the current
-estimate by an indexed gather and resamples it with one shared bilinear
-fraction. Illumination gain is solved in closed form per iteration:
-g* = (sum I*T + lam) / (sum I*I + lam).
+integer-aligned template window and a target window around each feature;
+each iteration resamples the [S, S] patch at the current estimate with one
+shared bilinear fraction. Illumination gain is solved in closed form per
+iteration: g* = (sum I*T + lam) / (sum I*I + lam).
 
-Departures from the JAX formulation, same results: the TPU-only shift
-chains of ``_int_subwindow`` become an indexed select, and the early-exit
-``while_loop`` becomes a fixed ``n_iterations`` loop — finished features
-are already masked out of every update (``step_ok``), so the extra
-iterations change nothing and no host sync is needed per iteration.
+``klt_track`` tracks every feature of every camera through every level in
+one launch of the CUDA kernel ``csrc/klt_track.cu`` for CUDA tensors (one
+warp per feature, windows in shared memory, the Gauss-Newton loop on chip,
+each feature leaving it once done); CPU tensors take the plain twin
+``klt_track_plain``, which cuts its windows with ``extract_windows`` and
+runs the array code below.
+
+Departures of the plain twin from the JAX formulation, same results: the
+TPU-only shift chains of ``_int_subwindow`` become an indexed select, and
+the early-exit ``while_loop`` becomes a fixed ``n_iterations`` loop —
+finished features are already masked out of every update (``step_ok``),
+so the extra iterations change nothing and no host sync is needed per
+iteration.
 """
 
 from __future__ import annotations
@@ -21,14 +27,17 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from coslam_torch.config import KLTConfig
+from coslam_torch.ops import cuda_lib
 from coslam_torch.ops.patches import extract_windows, frac_shift
-from coslam_torch.ops.pyramid import Pyramid
+from coslam_torch.ops.pyramid import MAX_LEVELS, Pyramid
 
 # search margin per level (px): integer displacement handled inside one
 # window without re-extraction
 _MARGIN = 6
+MAX_RADIUS = 7    # csrc/klt_track.cu's register and shared-memory sizing
 
 
 class KLTResult(NamedTuple):
@@ -45,6 +54,14 @@ def _levels_schedule(n_levels: int, level_skip: int) -> list[int]:
     return levels
 
 
+def _kept_levels(pyr: Pyramid, cfg: KLTConfig) -> list[int]:
+    """The schedule's levels, coarse to fine, without those whose image is
+    smaller than the search window (level 0 always stays)."""
+    G = 2 * cfg.window_radius + 2 + 2 * _MARGIN
+    return [lv for lv in _levels_schedule(len(pyr.imgs), cfg.level_skip)
+            if min(pyr.imgs[lv].shape[1:]) >= G + 2 or lv == 0]
+
+
 def _int_subwindow(Wnd: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor,
                    S: int) -> torch.Tensor:
     """out[a, b, n] = Wnd[iy[n] + a, ix[n] + b, n] for a, b < S."""
@@ -59,7 +76,9 @@ def _int_subwindow(Wnd: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor,
 def _track_level(img_t, img_c, pos_t, q, g, cfg: KLTConfig):
     """One pyramid level, all cameras flattened onto the feature axis.
     img_t/img_c: [C, h, w]; pos_t: [C*N, 2] template positions (level
-    coords); q: [C*N, 2] current estimates. Returns (q, g, ok, ssd)."""
+    coords); q: [C*N, 2] current estimates. Returns (q, g, ok, ssd,
+    iters), iters [C*N] being the iterations each feature ran before it
+    was done."""
     C, h, w = img_c.shape
     CN = q.shape[0]
     N = CN // C
@@ -111,7 +130,9 @@ def _track_level(img_t, img_c, pos_t, q, g, cfg: KLTConfig):
         return I, in_range
 
     done = torch.zeros((CN,), dtype=torch.bool, device=dev)
+    iters = torch.zeros((CN,), dtype=torch.int32, device=dev)
     for _ in range(cfg.n_iterations):
+        iters += ~done
         I, in_range = resample(q)
         if cfg.track_with_gain:
             g_new = (torch.sum(I * T, (0, 1)) + lam) / \
@@ -133,20 +154,14 @@ def _track_level(img_t, img_c, pos_t, q, g, cfg: KLTConfig):
     I, ok = resample(q)
     e = T - g[None, None, :] * I
     ssd = torch.sum(e * e, (0, 1))
-    return q, g, ok, ssd
+    return q, g, ok, ssd, iters
 
 
-def klt_track(pyr_prev: Pyramid, pyr_cur: Pyramid, pos: torch.Tensor,
-              valid: torch.Tensor, cfg: KLTConfig) -> KLTResult:
-    """Track features from the previous to the current frame, all cameras.
-    pyr_*: camera-batched pyramids; pos: [C, N, 2]; valid: [C, N]."""
+def klt_track_plain(pyr_prev: Pyramid, pyr_cur: Pyramid, pos: torch.Tensor,
+                    valid: torch.Tensor, cfg: KLTConfig) -> KLTResult:
+    """The plain PyTorch tracker (see ``klt_track``)."""
     C, N = pos.shape[:2]
-    levels = _levels_schedule(len(pyr_prev.imgs), cfg.level_skip)
-    # drop levels whose image is smaller than the search window
-    r = cfg.window_radius
-    G = 2 * r + 2 + 2 * _MARGIN
-    levels = [lv for lv in levels
-              if min(pyr_cur.imgs[lv].shape[1:]) >= G + 2 or lv == 0]
+    levels = _kept_levels(pyr_cur, cfg)
     top = levels[0]
     pos_f = pos.reshape(C * N, 2)
     q = pos_f * (0.5 ** top)
@@ -158,8 +173,8 @@ def klt_track(pyr_prev: Pyramid, pyr_cur: Pyramid, pos: torch.Tensor,
         if li > 0:
             q = q * (2.0 ** (prev_l - lv))
         pos_t = pos_f * (0.5 ** lv)
-        q, g, ok_l, ssd = _track_level(pyr_prev.imgs[lv], pyr_cur.imgs[lv],
-                                       pos_t, q, g, cfg)
+        q, g, ok_l, ssd, _ = _track_level(
+            pyr_prev.imgs[lv], pyr_cur.imgs[lv], pos_t, q, g, cfg)
         # only the finest level's search-range check gates validity
         if lv == 0:
             ok = ok & ok_l
@@ -172,3 +187,77 @@ def klt_track(pyr_prev: Pyramid, pyr_cur: Pyramid, pos: torch.Tensor,
         torch.all(torch.isfinite(q), -1)
     return KLTResult(pos=q.reshape(C, N, 2), valid=ok.reshape(C, N),
                      ssd=ssd.reshape(C, N), gain=g.reshape(C, N))
+
+
+def _klt_track_cuda(pyr_prev: Pyramid, pyr_cur: Pyramid, pos: torch.Tensor,
+                    valid: torch.Tensor, cfg: KLTConfig) -> KLTResult:
+    if pos.dtype != torch.float32 or pos.dim() != 3 or pos.shape[2] != 2:
+        raise ValueError(f"klt_track takes pos [C, N, 2] float32, got "
+                         f"{pos.dtype} {tuple(pos.shape)}")
+    C, N = pos.shape[:2]
+    if valid.dtype != torch.bool or tuple(valid.shape) != (C, N):
+        raise ValueError(f"klt_track takes valid [C, N] bool, got "
+                         f"{valid.dtype} {tuple(valid.shape)}")
+    if valid.device != pos.device:
+        raise ValueError("klt_track: pos and valid on different devices")
+    n_levels = len(pyr_prev.imgs)
+    if len(pyr_cur.imgs) != n_levels or not 1 <= n_levels <= MAX_LEVELS:
+        raise ValueError("klt_track takes two pyramids of 1 to "
+                         f"{MAX_LEVELS} levels each, got "
+                         f"{len(pyr_prev.imgs)} and {len(pyr_cur.imgs)}")
+    H, W = pyr_cur.imgs[0].shape[1:]
+    for lv in range(n_levels):
+        for im in (pyr_prev.imgs[lv], pyr_cur.imgs[lv]):
+            if im.dtype != torch.float32 or \
+                    tuple(im.shape) != (C, H >> lv, W >> lv) or \
+                    not im.is_contiguous() or im.device != pos.device:
+                raise ValueError(
+                    f"klt_track: level {lv} must be a contiguous float32 "
+                    f"[{C}, {H >> lv}, {W >> lv}] on {pos.device}, got "
+                    f"{im.dtype} {tuple(im.shape)} on {im.device}")
+    r = cfg.window_radius
+    if not 0 <= r <= MAX_RADIUS:
+        raise ValueError(f"klt_track: window_radius {r} is outside the "
+                         f"kernel's 0..{MAX_RADIUS}")
+    G = 2 * r + 2 + 2 * _MARGIN
+    if min(H, W) < G:
+        raise ValueError(f"klt_track: a {H}x{W} image is smaller than the "
+                         f"{G}-px search window")
+    pos = pos.contiguous()
+    valid = valid.contiguous()
+    pos_out = torch.empty_like(pos)
+    valid_out = torch.empty_like(valid)
+    ssd = torch.empty((C, N), dtype=pos.dtype, device=pos.device)
+    gain = torch.empty((C, N), dtype=pos.dtype, device=pos.device)
+    if C * N == 0:
+        return KLTResult(pos=pos_out, valid=valid_out, ssd=ssd, gain=gain)
+    levels = _kept_levels(pyr_cur, cfg)
+    prev = cuda_lib.pointer_array([t.data_ptr() for t in pyr_prev.imgs])
+    cur = cuda_lib.pointer_array([t.data_ptr() for t in pyr_cur.imgs])
+    fn = cuda_lib.library("klt_track").klt_track
+    with torch.cuda.device(pos.device):
+        rc = fn(prev, cur, cuda_lib.int_array(levels), len(levels),
+                pos.data_ptr(), valid.data_ptr(), pos_out.data_ptr(),
+                valid_out.data_ptr(), ssd.data_ptr(), gain.data_ptr(),
+                C, N, H, W, r, cfg.n_iterations, int(cfg.track_with_gain),
+                cfg.gain_lambda, cfg.convergence_threshold,
+                float(cfg.border), cfg.ssd_threshold,
+                torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check("klt_track", rc)
+    klt_track.launches += 1
+    return KLTResult(pos=pos_out, valid=valid_out, ssd=ssd, gain=gain)
+
+
+def klt_track(pyr_prev: Pyramid, pyr_cur: Pyramid, pos: torch.Tensor,
+              valid: torch.Tensor, cfg: KLTConfig) -> KLTResult:
+    """Track features from the previous to the current frame, all cameras.
+    pyr_*: camera-batched pyramids; pos: [C, N, 2]; valid: [C, N]. Every
+    slot is tracked, valid or not. CUDA tensors launch the kernel once (or
+    raise); CPU tensors take the plain twin."""
+    with record_function("klt_track"):
+        if pos.is_cuda:
+            return _klt_track_cuda(pyr_prev, pyr_cur, pos, valid, cfg)
+        return klt_track_plain(pyr_prev, pyr_cur, pos, valid, cfg)
+
+
+klt_track.launches = 0   # kernel launches (CUDA tensors only)

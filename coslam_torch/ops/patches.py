@@ -1,11 +1,11 @@
 """Bilinear sampling, patch extraction and integer window extraction (the
 port of ``coslam_tpu/ops/patches.py``).
 
-``extract_windows`` is the memory-access core of the KLT tracker and of
-the NCC block extractor: the CUDA kernel ``csrc/extract_windows.cu`` for
-CUDA tensors, its plain twin ``extract_windows_plain`` (a flat-index
-gather) for CPU tensors. Both copy pixels verbatim, so they agree bit for
-bit.
+``extract_windows`` is the memory-access core of the NCC block extractor
+and of the plain KLT tracker (the KLT kernel, ``csrc/klt_track.cu``, cuts
+its own windows): the CUDA kernel ``csrc/extract_windows.cu`` for CUDA
+tensors, its plain twin ``extract_windows_plain`` (a flat-index gather)
+for CPU tensors. Both copy pixels verbatim, so they agree bit for bit.
 
 Convention: positions are (x, y) with (0, 0) at the center of the top-left
 pixel; a position is "in bounds" if its full bilinear support is inside

@@ -171,24 +171,35 @@ def test_set_drop_matches_jax(rng):
 
 def test_wrappers_take_the_plain_version_on_cpu(rng):
     """A CPU tensor runs the plain twin and launches nothing."""
+    from coslam_torch.config import KLTConfig
+    from coslam_torch.ops.klt import klt_track, klt_track_plain
     from coslam_torch.ops.patches import extract_windows, \
         extract_windows_plain
-    from coslam_torch.ops.pyramid import pyramid_level, pyramid_level_plain
+    from coslam_torch.ops.pyramid import build_pyramid, build_pyramid_plain
     img = tp.t(rng.uniform(0, 255, (1, 40, 56)).astype(np.float32))
     base = tp.t(rng.integers(-3, 50, (1, 9, 2)).astype(np.int32))
-    n1, n2 = pyramid_level.launches, extract_windows.launches
-    for a, b in zip(pyramid_level(img, True), pyramid_level_plain(img, True)):
+    pos = tp.t(rng.uniform(0, 50, (1, 9, 2)).astype(np.float32))
+    valid = tp.t(rng.random((1, 9)) > 0.2)
+    n0 = (build_pyramid.launches, klt_track.launches,
+          extract_windows.launches)
+    pyr, want = build_pyramid(img, 2), build_pyramid_plain(img, 2)
+    for a, b in zip(pyr.imgs + pyr.dxs + pyr.dys,
+                    want.imgs + want.dxs + want.dys):
         assert torch.equal(a, b)
-    assert torch.equal(pyramid_level(img, False),
-                       pyramid_level_plain(img, False))
+    for a, b in zip(klt_track(pyr, pyr, pos, valid, KLTConfig(n_levels=2)),
+                    klt_track_plain(pyr, pyr, pos, valid,
+                                    KLTConfig(n_levels=2))):
+        assert torch.equal(a, b)
     assert torch.equal(extract_windows(img, base, 14),
                        extract_windows_plain(img, base, 14))
-    assert (pyramid_level.launches, extract_windows.launches) == (n1, n2)
+    assert (build_pyramid.launches, klt_track.launches,
+            extract_windows.launches) == n0 == (0, 0, 0)
 
 
 def test_ctypes_signatures_match_cuda_sources():
     """Each kernel library's ctypes argtypes agree with its extern "C"
-    declaration: a pointer (or the stream) as c_void_p, an int as c_int."""
+    declaration: a pointer, a host array (or the stream) as c_void_p, an
+    int as c_int, a float as c_float."""
     import ctypes
     from coslam_torch.ops import cuda_lib
     assert sorted(p.stem for p in cuda_lib.CSRC.glob("*.cu")) == \
@@ -198,7 +209,8 @@ def test_ctypes_signatures_match_cuda_sources():
         m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
         assert m, name
         params = [p.strip() for p in m.group(1).split(",")]
-        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
+        kinds = [ctypes.c_void_p if "*" in p else
+                 ctypes.c_float if p.startswith("float ") else ctypes.c_int
                  for p in params]
         assert params[-1] == "void* stream", (name, params)
         assert kinds == argtypes, (name, params)
