@@ -1,11 +1,12 @@
-"""Synthetic textured room with ground-truth trajectories (the port of the
-static-scene part of ``coslam_tpu/io/synthetic.py``).
+"""Synthetic textured room with ground-truth trajectories (the port of
+``coslam_tpu/io/synthetic.py`` without its distortion warp).
 
-World = textured planes (floor, ceiling, back and side walls); rendering
-ray-casts every pixel to the nearest plane and fetches its texture
-bilinearly. With the same numpy generator the textures and trajectories
-equal the JAX package's, so a run can make its own frames and ground
-truth on the device it runs on.
+World = textured planes (floor, ceiling, back and side walls) plus
+optional moving textured quads (the dynamic objects); rendering ray-casts
+every pixel to the nearest plane and fetches its texture bilinearly. With
+the same numpy generator the textures, rigs and trajectories equal the
+JAX package's, so a run can make its own frames and ground truth on the
+device it runs on.
 """
 
 from __future__ import annotations
@@ -60,6 +61,15 @@ def make_room(rng, size=10.0, tex_kw=None) -> list[Plane]:
     ]
 
 
+class MovingQuad(NamedTuple):
+    """A dynamic textured quad: position is a function of frame index."""
+    center0: np.ndarray   # [3] at frame 0
+    velocity: np.ndarray  # [3] per frame
+    eu: np.ndarray        # [3]
+    ev: np.ndarray        # [3]
+    tex: np.ndarray
+
+
 def _plane_tensors(planes: list[Plane], device):
     def f(a):
         return torch.as_tensor(np.stack(a).astype(np.float32), device=device)
@@ -97,8 +107,11 @@ def _render(p0, eu, ev, tex, K, R, t, h: int, w: int) -> torch.Tensor:
     dist = torch.where(inside, tt, torch.full_like(tt, float("inf")))
     best = torch.argmin(dist, dim=0)                       # [H, W]
     any_hit = torch.isfinite(torch.amin(dist, dim=0))
-    a_best = torch.gather(a, 0, best[None])[0]
-    b_best = torch.gather(b, 0, best[None])[0]
+    # a pixel that hits no plane reads texel (0, 0) and is zeroed below:
+    # its (a, b) on plane 0 may be NaN, which must not become an index
+    zero = torch.zeros((), device=dev)
+    a_best = torch.where(any_hit, torch.gather(a, 0, best[None])[0], zero)
+    b_best = torch.where(any_hit, torch.gather(b, 0, best[None])[0], zero)
     u = torch.clamp(a_best * (wt - 1), 0.0, wt - 1.001)
     v = torch.clamp(b_best * (ht - 1), 0.0, ht - 1.001)
     u0 = torch.floor(u).long()
@@ -116,27 +129,49 @@ def _render(p0, eu, ev, tex, K, R, t, h: int, w: int) -> torch.Tensor:
     return torch.where(any_hit, val, torch.zeros_like(val))
 
 
-def render(planes: list[Plane], K: np.ndarray, R: np.ndarray, t: np.ndarray,
-           h: int, w: int, device=None) -> torch.Tensor:
-    """Render one view (world->camera (R, t)). Returns [H, W] f32 (0..255)
-    on ``device``."""
+def _with_quads(planes: list[Plane], quads, device):
+    """Plane tensors of the static planes followed by the quads (placed at
+    frame 0), and the quads' velocities [Q, 3] (None without quads)."""
+    if not quads:
+        return _plane_tensors(planes, device), None
+    qp = [Plane(q.center0 - 0.5 * q.eu - 0.5 * q.ev, q.eu, q.ev, q.tex)
+          for q in quads]
+    vel = torch.as_tensor(np.stack([q.velocity for q in quads])
+                          .astype(np.float32), device=device)
+    return _plane_tensors(planes + qp, device), vel
+
+
+def render_sequence(planes, K, Rs, ts, h, w, quads=None, frames=None,
+                    device=None) -> torch.Tensor:
+    """Render B views: Rs [B, 3, 3], ts [B, 3] world->camera; ``frames``
+    [B] is each view's frame index for the moving quads (default
+    0..B-1). Quads occlude the static planes when closer. Returns
+    [B, H, W] f32 (0..255) on ``device``."""
     dev = resolve_device(device)
-    p0, eu, ev, tex = _plane_tensors(planes, dev)
-
-    def T(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    return _render(p0, eu, ev, tex, T(K), T(R), T(t), h, w)
-
-
-def render_sequence(planes, K, Rs, ts, h, w, device=None) -> torch.Tensor:
-    """Render a whole trajectory: [F, H, W] f32 on ``device``."""
-    dev = resolve_device(device)
-    p0, eu, ev, tex = _plane_tensors(planes, dev)
+    (p0, eu, ev, tex), vel = _with_quads(planes, quads, dev)
     Kt = torch.as_tensor(np.asarray(K, np.float32), device=dev)
     Rt = torch.as_tensor(np.asarray(Rs, np.float32), device=dev)
     tt = torch.as_tensor(np.asarray(ts, np.float32), device=dev)
-    return torch.stack([_render(p0, eu, ev, tex, Kt, Rt[f], tt[f], h, w)
-                        for f in range(Rt.shape[0])])
+    B = Rt.shape[0]
+    fr = np.arange(B) if frames is None else np.asarray(frames)
+    out = []
+    for b in range(B):
+        p0b = p0
+        if vel is not None:
+            Q = vel.shape[0]
+            p0b = torch.cat([p0[:-Q], p0[-Q:] + float(fr[b]) * vel])
+        out.append(_render(p0b, eu, ev, tex, Kt, Rt[b], tt[b], h, w))
+    return torch.stack(out)
+
+
+def render(planes: list[Plane], K: np.ndarray, R: np.ndarray, t: np.ndarray,
+           h: int, w: int, quads=None, frame: int = 0,
+           device=None) -> torch.Tensor:
+    """Render one view (world->camera (R, t)) at ``frame`` (for the
+    quads). Returns [H, W] f32 (0..255) on ``device``."""
+    return render_sequence(planes, K, np.asarray(R)[None],
+                           np.asarray(t)[None], h, w, quads=quads,
+                           frames=[frame], device=device)[0]
 
 
 def orbit_trajectory(n_frames: int, radius: float = 1.5,
@@ -153,3 +188,34 @@ def orbit_trajectory(n_frames: int, radius: float = 1.5,
         Rs.append(R)
         ts.append((-R @ c).astype(np.float32))
     return np.stack(Rs), np.stack(ts)
+
+
+def multi_cam_rig(n_cams: int, baseline: float = 0.8):
+    """Static offsets of each camera from the rig center (world units),
+    cameras side by side with slight toe-in. Returns (rotations [C, 3, 3],
+    offsets [C, 3]), numpy."""
+    offs, rots = [], []
+    for ci in range(n_cams):
+        x = (ci - (n_cams - 1) / 2.0) * baseline
+        offs.append(np.array([x, 0.0, 0.0], dtype=np.float32))
+        toe = -0.04 * (ci - (n_cams - 1) / 2.0)
+        rots.append(so3_exp_np(np.array([0.0, toe, 0.0])))
+    return np.stack(rots), np.stack(offs)
+
+
+def rig_sequence(n_cams: int, n_frames: int, baseline: float = 1.0,
+                 forward: float = 0.04):
+    """Ground-truth poses of a camera rig flying ``orbit_trajectory``:
+    (Rs [C, F, 3, 3], ts [C, F, 3]) world->camera, numpy."""
+    Rr, tr = orbit_trajectory(n_frames, forward=forward)
+    rot_c, offs_c = multi_cam_rig(n_cams, baseline=baseline)
+    Rs = np.zeros((n_cams, n_frames, 3, 3), np.float32)
+    ts = np.zeros((n_cams, n_frames, 3), np.float32)
+    for f in range(n_frames):
+        c_rig = -Rr[f].T @ tr[f]
+        for c in range(n_cams):
+            center = c_rig + Rr[f].T @ offs_c[c]
+            Rc = rot_c[c] @ Rr[f]
+            Rs[c, f] = Rc
+            ts[c, f] = -Rc @ center
+    return Rs, ts

@@ -1,5 +1,6 @@
 """The per-frame tracked step: pyramid -> KLT + redetect -> pose update ->
-pose history -> new map points -> lifecycle, as one function over the
+pose history -> (several cameras: dynamic-feature voting and map-point
+classification) -> new map points -> lifecycle, as one function over the
 camera batch (the port of ``coslam_tpu/slam/fused.py``, single-device
 path). ``pack_stats`` flattens the per-frame statistics into one vector,
 so a tracked frame costs one device-to-host copy.
@@ -18,6 +19,8 @@ import torch
 from coslam_torch.config import SlamConfig
 from coslam_torch.ops.pyramid import build_pyramid
 from coslam_torch.slam import steps
+from coslam_torch.slam.classify import (classify_map_points,
+                                        detect_dynamic_features)
 from coslam_torch.slam.state import PT_DYNAMIC, ST_ALIVE, SlamState
 
 
@@ -41,10 +44,6 @@ def frame_step(state: SlamState, pyr_prev, imgs_cur: torch.Tensor,
                K: torch.Tensor, kc: torch.Tensor, cfg: SlamConfig):
     """One tracked frame. Returns (state', pyr_cur, FrameStats); the
     previous frame's pyramid is carried between calls."""
-    if cfg.num_cameras > 1:
-        raise NotImplementedError(
-            "multi-camera per-frame stages (classification, dynamic "
-            "features) are not ported yet: ROADMAP.md item A13")
     imgs_cur = imgs_cur.to(torch.float32)
     img_hw = (imgs_cur.shape[1], imgs_cur.shape[2])
     pyr_cur = build_pyramid(imgs_cur, cfg.klt.n_levels)
@@ -55,9 +54,14 @@ def frame_step(state: SlamState, pyr_prev, imgs_cur: torch.Tensor,
     state = state._replace(R=out.R, t=out.t, tracks=out.tracks,
                            mappts=out.mappts)
     state = steps.push_pose_history(state)
-    dev = imgs_cur.device
-    n_static = torch.zeros((), dtype=torch.int32, device=dev)
-    n_dynamic = torch.zeros((), dtype=torch.int32, device=dev)
+    if cfg.num_cameras > 1:
+        state = detect_dynamic_features(state, K, cfg)
+        cls = classify_map_points(state, K, cfg)
+        state = state._replace(mappts=cls.mappts, tracks=cls.tracks)
+        n_static, n_dynamic = cls.n_static, cls.n_dynamic
+    else:
+        n_static = torch.zeros((), dtype=torch.int32, device=imgs_cur.device)
+        n_dynamic = torch.zeros_like(n_static)
     mappts, tracks2, n_new = steps.new_map_points(state, pyr_cur, K, kc, cfg)
     mappts = steps.lifecycle_update(mappts, state.frame, cfg)
     state = state._replace(mappts=mappts, tracks=tracks2)

@@ -1,6 +1,7 @@
-"""Periodic duplicate unification of close map points (the port of
-``coslam_tpu/slam/merge.py::fuse_close_points``; group merging is not
-ported yet)."""
+"""Periodic duplicate unification of close map points and the device
+candidate scan behind the grouping, merge and loop checks (the port of
+``coslam_tpu/slam/merge.py::fuse_close_points`` and
+``scan_candidates_device``; group merging itself is not ported yet)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,35 @@ import torch
 
 from coslam_torch.config import SlamConfig
 from coslam_torch.slam.state import PT_STATIC, ST_ALIVE, ST_FALSE, SlamState
+
+
+def scan_candidates_device(state: SlamState, K: torch.Tensor, h: int, w: int,
+                           dormant_age: int):
+    """Small device reduction feeding the merge and loop candidate scans.
+    Returns:
+      merge_counts [C, C]: alive static points owned by camera j that
+                           project inside camera i's image
+      alive_per_owner [C]: alive static points per owner camera
+      dormant_counts [C]:  dormant (unseen >= dormant_age) alive static
+                           points projecting inside each camera
+    ``merge_counts`` is a float32 product (TF32 stays off)."""
+    mp = state.mappts
+    C = state.R.shape[0]
+    alive = (mp.status == ST_ALIVE) & (mp.ptype == PT_STATIC)
+    Xc = torch.einsum("cij,pj->cpi", state.R, mp.xyz) + state.t[:, None, :]
+    z = Xc[..., 2]
+    zi = 1.0 / torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+    u = Xc[..., 0] * zi * K[:, 0, 0, None] + K[:, 0, 2, None]
+    v = Xc[..., 1] * zi * K[:, 1, 1, None] + K[:, 1, 2, None]
+    inside = alive[None] & (z > 1e-3) & (u >= 0) & (u < w) & \
+        (v >= 0) & (v < h)
+    own = torch.nn.functional.one_hot(
+        torch.clamp(mp.owner, 0, C - 1).long(), C).to(torch.float32) \
+        * alive[:, None].to(torch.float32)
+    merge_counts = inside.to(torch.float32) @ own
+    dormant = alive & (state.frame - mp.last_obs >= dormant_age)
+    dormant_counts = torch.sum(inside & dormant[None], dim=1)
+    return merge_counts, torch.sum(own, dim=0), dormant_counts
 
 
 def _fuse_close_kill_mask(mappts, R: torch.Tensor, t: torch.Tensor,

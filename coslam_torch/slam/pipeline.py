@@ -1,15 +1,20 @@
-"""Host-side engine (the port of the monocular subset of
-``coslam_tpu/slam/pipeline.py``).
+"""Host-side engine (the port of ``coslam_tpu/slam/pipeline.py``: one
+camera or several, without group merges and loop closure).
 
 The per-frame hot path is ``fused.frame_step`` over statically shaped
 state on the device; the host reads one packed statistics vector per
-tracked frame and makes the cadence decisions: keyframes, windowed BA
-(synchronous), periodic duplicate unification. Frame 0 seeds corners; the
-two-frame E-matrix bootstrap runs once ``init_frames`` frames are tracked.
-Trajectories are chain-corrected to the final keyframe poses at export.
+tracked frame and makes the cadence decisions: the joint multi-camera
+pose when a camera's static support collapses, the dynamic-point log,
+camera grouping (with split hysteresis), inter-camera mapping and
+registration, keyframes, windowed BA (synchronous), periodic duplicate
+unification. Frame 0 seeds corners; several cameras bootstrap from the
+wide-baseline map init at frame 0 (retried every frame until it
+succeeds), one camera from the two-frame E-matrix once ``init_frames``
+frames are tracked. Trajectories are chain-corrected to the final
+keyframe poses at export.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): several cameras (A13), loop closure (A14), the chunked, overlapped,
+item): group merges and loop closure (A14), the chunked, overlapped,
 async-BA and non-fused engine modes (A15), and multi-device meshes (A18).
 """
 
@@ -29,6 +34,12 @@ from coslam_torch.ops.corners import detect_corners
 from coslam_torch.ops.pyramid import build_pyramid
 from coslam_torch.slam import steps
 from coslam_torch.slam.fused import frame_step, pack_stats, unpack_stats
+from coslam_torch.slam.grouping import (camera_grouping,
+                                        group_camera_tuples, host_scan_device)
+from coslam_torch.slam.initmap import init_map_multicam
+from coslam_torch.slam.intercam import (intercam_map_group,
+                                        joint_pose_update,
+                                        register_map_points)
 from coslam_torch.slam.merge import fuse_close_points
 from coslam_torch.slam.state import (PT_STATIC, ST_ALIVE, SlamState,
                                      init_state)
@@ -39,7 +50,8 @@ from coslam_torch.solvers.pose_graph import (chain_graph,
                                              solve_translations)
 from coslam_torch.util import nanmedian, resolve_device, set_drop
 
-# cadence (frames) of the grouping tick, on which the loop check runs
+# cadence (frames) of the grouping tick, on which the merge and loop
+# checks run
 GROUPING_INTERVAL = 5
 
 
@@ -49,13 +61,13 @@ def _pack_rt(R, t):
 
 
 class CoSlamEngine:
-    """Monocular SLAM engine (the CoSLAM object equivalent, one camera).
+    """One engine = C synchronized cameras (the CoSLAM object equivalent).
 
     Usage:
         eng = CoSlamEngine(cfg, K, kc)            # on the CUDA device
         for f in range(F):
-            stats = eng.process_frame(images[f])  # [1, H, W]
-        Rs, ts = eng.trajectory(0)                # corrected
+            stats = eng.process_frame(images[f])  # [C, H, W]
+        Rs, ts = eng.trajectory(c)                # corrected, camera c
 
     ``device`` defaults to CUDA and raises when no card is present; pass
     ``device="cpu"`` to run the plain PyTorch path on the CPU."""
@@ -63,9 +75,6 @@ class CoSlamEngine:
     def __init__(self, cfg: SlamConfig, K, kc, device=None,
                  use_fused: bool = True, async_ba: bool = False,
                  overlap: bool = False, chunk: int = 1, mesh=None):
-        if cfg.num_cameras > 1:
-            raise NotImplementedError(
-                "multi-camera SLAM is not ported yet: ROADMAP.md item A13")
         if chunk > 1 or overlap or async_ba or not use_fused:
             raise NotImplementedError(
                 "the chunked, overlapped, async-BA and non-fused engine "
@@ -92,7 +101,15 @@ class CoSlamEngine:
         self._kf_inliers = np.zeros(C)
         self.stats_log: list[dict] = []
         self.ba_runs = 0
+        self.group_id = np.zeros(C, np.int32)
+        self.group_hist: list[tuple] = []   # per-frame group ids
+        self.dyn_log: list[tuple] = []      # (frame, ids, xyz) dynamic points
+        self._split_pending = None          # grouping-split hysteresis
+        self._scan_frame = -1               # frame of the cached host scan
+        self._scan_cache = None
         self._last_grouping = -10 ** 9
+        self._last_intercam = -10 ** 9
+        self._last_register = -10 ** 9
         self._last_fuse = 0
         self._kf_pose_host = None   # (R, t) of the last keyframe, numpy
         self._pose_host_cache = None
@@ -118,16 +135,21 @@ class CoSlamEngine:
             stats = {"frame": self.frame}
             if self.frame == 0:
                 self._first_frame(pyr)
+                if cfg.num_cameras > 1:
+                    stats["bootstrap"] = self._bootstrap_multicam(pyr)
             else:
                 self.state = self.state._replace(
                     tracks=steps.advance_tracks(
                         self.pyr_prev, pyr, self.state.tracks, self.K,
                         self.kc, self.state.frame + 1, cfg),
                     frame=self.state.frame + 1)
-                if self.frame >= cfg.p.init_frames:
+                if cfg.num_cameras > 1:
+                    stats["bootstrap"] = self._bootstrap_multicam(pyr)
+                elif self.frame >= cfg.p.init_frames:
                     stats["bootstrap"] = self._bootstrap(pyr)
         self._record_pose()
         self.pyr_prev = pyr
+        self.group_hist.append(tuple(self.group_id.tolist()))
         self.frame += 1
         stats.setdefault("n_inliers", np.zeros(cfg.num_cameras))
         self.stats_log.append(stats)
@@ -146,6 +168,49 @@ class CoSlamEngine:
             torch.full(det.valid.shape, -1, dtype=torch.int32,
                        device=self.device), self.K, self.kc, 0)
         self.state = self.state._replace(tracks=tracks)
+
+    def _bootstrap_multicam(self, pyr) -> bool:
+        """Wide-baseline bootstrap between the cameras (initMapMultiCam):
+        frame 0, retried on every frame until it succeeds."""
+        st = self.state
+        res = init_map_multicam(self.cfg, self.K, self.kc, pyr,
+                                st.tracks.pos, st.tracks.valid)
+        if not res.ok:
+            return False
+        C, N = st.tracks.valid.shape
+        M = res.X.shape[0]
+        dev = self.device
+        mp = st.mappts
+        mp = mp._replace(
+            xyz=torch.cat([torch.as_tensor(res.X, device=dev), mp.xyz[M:]]),
+            cov=torch.cat([torch.as_tensor(res.cov, device=dev),
+                           mp.cov[M:]]),
+            status=torch.cat([torch.full_like(mp.status[:M], ST_ALIVE),
+                              mp.status[M:]]),
+            ptype=torch.cat([torch.full_like(mp.ptype[:M], PT_STATIC),
+                             mp.ptype[M:]]),
+            first_frame=torch.cat([st.frame.expand(M).to(mp.first_frame),
+                                   mp.first_frame[M:]]),
+            last_obs=torch.cat([st.frame.expand(M).to(mp.last_obs),
+                                mp.last_obs[M:]]))
+        mpt = np.full((C, N), -1, np.int32)
+        for c in range(C):
+            has = res.obs_slot[:, c] >= 0
+            mpt[c, res.obs_slot[has, c]] = np.nonzero(has)[0]
+        # reset the track history: after retries, the pre-bootstrap ring
+        # entries pair with unset pose-ring slots
+        tracks = steps.seed_tracks(st.tracks, st.tracks.pos, st.tracks.valid,
+                                   torch.as_tensor(mpt, device=dev), self.K,
+                                   self.kc, st.frame)
+        state = st._replace(tracks=tracks, mappts=mp,
+                            R=torch.as_tensor(res.Rs, device=dev),
+                            t=torch.as_tensor(res.ts, device=dev))
+        state = steps.push_pose_history(state)
+        self.state = state._replace(kfs=steps.add_keyframe(state))
+        self.bootstrapped = True
+        self.kf_frames = [self.frame]
+        self._kf_inliers = np.full(C, float(M))
+        return True
 
     def _bootstrap(self, pyr) -> bool:
         """Monocular two-frame bootstrap (initMapSingleCam): E-matrix
@@ -239,29 +304,73 @@ class CoSlamEngine:
         fs = unpack_stats(fsv.cpu(), self.cfg.num_cameras,
                           self.state.kfs.dyn_xyz.shape[1])
         self._pose_host_cache = (fs.R.copy(), fs.t.copy())
-        return self._shared_cadence(pyr, fs, n_mapped=fs.n_mapped,
-                                    n_new=int(fs.n_new_points),
-                                    frame=self.frame)
+        # the dynamic snapshot rides the stats copy
+        return self._shared_cadence(
+            pyr, fs, n_mapped=fs.n_mapped, n_new=int(fs.n_new_points),
+            dyn=(fs.dyn_ids, fs.dyn_xyz), n_static=int(fs.n_static), n_dynamic=int(fs.n_dynamic),
+            frame=self.frame)
 
     def _shared_cadence(self, pyr, out, n_mapped: np.ndarray, n_new: int,
+                        dyn, n_static: int, n_dynamic: int,
                         frame: int) -> dict:
-        """Host-decided per-frame work: the loop-closure check on the
-        grouping cadence, keyframes + BA, duplicate unification."""
+        """Host-decided per-frame work: the joint-pose fallback, the
+        dynamic-point log, grouping (and where groups could merge, the
+        merge check), the loop-closure check, inter-camera mapping and
+        registration, keyframes + BA, duplicate unification. ``dyn`` is the
+        (ids, xyz) snapshot of the dynamic points from the stats copy."""
         cfg = self.cfg
+        p = cfg.p
+        C = cfg.num_cameras
         n_inl = np.asarray(out.n_inliers)
+        cover = np.asarray(out.coverage)
+        joint = False
         grouping_due = self.frame - self._last_grouping >= GROUPING_INTERVAL
         if grouping_due:
             self._last_grouping = self.frame
+        if C > 1:
+            # a camera whose static support collapsed (a mover filling its
+            # view) rides the joint solve through the dynamic points it
+            # shares with the others (interCamPoseUpdate); only the group's
+            # total static support must hold the frame
+            weak = (n_inl < p.min_static_for_ok) | (cover < p.min_static_cover)
+            if weak.any() and n_inl.sum() >= p.min_static_for_ok:
+                R, t = joint_pose_update(self.state, self.K, cfg)
+                self.state = steps.push_pose_history(
+                    self.state._replace(R=R, t=t))
+                self._pose_host_cache = None
+                self._pose_prefetch = None
+                joint = True
+            if n_dynamic > 0:
+                ids, xyz = dyn
+                sel = ids >= 0
+                if sel.any():
+                    self.dyn_log.append((frame, ids[sel], xyz[sel]))
+            if grouping_due:
+                self._update_grouping()
+            # group merge (mergeCamGroups) on the grouping tick; no merge
+            # has run, so merge_min_interval counts from frame 0
+            if (len(np.unique(self.group_id)) > 1 and grouping_due
+                    and self.frame >= p.merge_min_interval
+                    and self._merge_possible()):
+                raise NotImplementedError(
+                    f"camera-group merging is not ported yet (reached at "
+                    f"frame {self.frame}, groups {self.group_id.tolist()}): "
+                    f"ROADMAP.md item A14")
+        if grouping_due:
             self._try_loop_closure(pyr)
+        n_inter = self._intercam_cadence(pyr, n_mapped, n_inl)
         stats = {
             "n_inliers": n_inl,
-            "coverage": np.asarray(out.coverage),
+            "coverage": cover,
             "med_err": np.asarray(out.med_err),
             "med_depth": np.asarray(out.med_depth),
             "n_new_points": n_new,
-            "n_intercam_points": 0,
-            "joint_pose": False,
+            "n_intercam_points": n_inter,
+            "joint_pose": joint,
         }
+        if C > 1:
+            stats["n_static"] = n_static
+            stats["n_dynamic"] = n_dynamic
         if self._keyframe_ready(out):
             self.state = self.state._replace(
                 kfs=steps.add_keyframe(self.state))
@@ -278,6 +387,87 @@ class CoSlamEngine:
             if n_fused:
                 stats["n_fused"] = n_fused
         return stats
+
+    def _intercam_cadence(self, pyr, n_mapped: np.ndarray,
+                          n_inl: np.ndarray) -> int:
+        """Multi-view inter-camera mapping and registration. Mapping runs
+        when the mapped-feature budget drops under ``n_max_map_pts`` (at
+        most every ``intercam_map_interval`` frames) or on an inlier-count
+        decrease (its own minimum spacing: half the interval); registration
+        keeps its fixed cadence."""
+        p = self.cfg.p
+        if self.cfg.num_cameras <= 1:
+            return 0
+        n_inter = 0
+        since = self.frame - self._last_intercam
+        budget_low = int(n_mapped.sum()) < p.n_max_map_pts
+        decrease = bool(np.any(n_inl < 0.8 * np.maximum(self._kf_inliers, 1)))
+        decrease = decrease and since >= max(1, p.intercam_map_interval // 2)
+        if (since >= p.intercam_map_interval and budget_low) or decrease:
+            for cams in group_camera_tuples(self.group_id):
+                mp, tr, nn = intercam_map_group(self.state, pyr, self.K,
+                                                self.kc, cams, self.cfg)
+                self.state = self.state._replace(mappts=mp, tracks=tr)
+                n_inter += int(nn)
+            self._last_intercam = self.frame
+        if self.frame - self._last_register >= p.intercam_map_interval:
+            self._last_register = self.frame
+            self.state, _ = register_map_points(
+                self.state, pyr, self.K, self.cfg, max_age=p.num_act_frames)
+        return n_inter
+
+    def _host_scan(self):
+        """The packed device reduction behind grouping and the merge check,
+        one copy per frame at most. Returns (shared [C,C], area [C,C],
+        merge_counts [C,C], alive_per_owner [C], dormant_counts [C])."""
+        if self._scan_frame != self.frame or self._scan_cache is None:
+            C = self.cfg.num_cameras
+            arr = host_scan_device(
+                self.state, self.K, self.cfg.image_height,
+                self.cfg.image_width, self.cfg.p.loop_dormant_age)
+            arr = arr.cpu().numpy()
+            self._scan_cache = (arr[:, :C], arr[:, C:2 * C],
+                                arr[:, 2 * C:3 * C], arr[:, 3 * C],
+                                arr[:, 3 * C + 1])
+            self._scan_frame = self.frame
+        return self._scan_cache
+
+    def _merge_possible(self) -> bool:
+        """Superset test of checkPossibleMergable from the device scan."""
+        _, _, mc, alive_own, _ = self._host_scan()
+        p = self.cfg.p
+        for a in range(self.cfg.num_cameras):
+            for g in np.unique(self.group_id):
+                if g == self.group_id[a]:
+                    continue
+                cams_g = self.group_id == g
+                cnt = float(mc[a, cams_g].sum())
+                n_own = float(alive_own[cams_g].sum())
+                if cnt >= p.merge_overlap_min or \
+                        (n_own > 0 and cnt / n_own >= p.merge_overlap_ratio):
+                    return True
+        return False
+
+    def _update_grouping(self):
+        """Recompute camera groups with SPLIT hysteresis: a proposal that
+        separates co-grouped cameras must persist for two consecutive
+        grouping rounds before it is committed (shared observations flap
+        around the threshold after occlusions). Joins apply at once."""
+        shared, area, _, _, _ = self._host_scan()
+        gid = camera_grouping(self.state, self.cfg, shared=shared, area=area)
+        cur = self.group_id
+        C = self.cfg.num_cameras
+        splits = any(cur[i] == cur[j] and gid[i] != gid[j]
+                     for i in range(C) for j in range(i + 1, C))
+        if splits:
+            key = tuple(gid.tolist())
+            if self._split_pending != key:
+                self._split_pending = key
+                return
+        self._split_pending = None
+        self.group_id = gid
+        self.state = self.state._replace(
+            group_id=torch.as_tensor(gid, device=self.device))
 
     def _try_loop_closure(self, pyr):
         """Intra-group loop closure: reached on a grouping tick once

@@ -70,26 +70,6 @@ def jpyr(img):
     return build_pyramid(jnp.asarray(img[None]), 3)
 
 
-def assert_tracks_close(jt, tt, max_flips=2, pos_tol=1e-3):
-    jv, tv = np.asarray(jt.valid), tp.n(tt.valid)
-    assert (jv != tv).sum() <= max_flips
-    both = jv & tv
-    assert both.sum() > 50
-    for f in ("pos", "raw"):
-        np.testing.assert_allclose(tp.n(getattr(tt, f))[both],
-                                   np.asarray(getattr(jt, f))[both],
-                                   atol=pos_tol, err_msg=f)
-    for f in ("age", "mpt", "dyn_votes"):
-        np.testing.assert_array_equal(tp.n(getattr(tt, f))[both],
-                                      np.asarray(getattr(jt, f))[both],
-                                      err_msg=f)
-    hv = np.asarray(jt.hist_valid)
-    assert (hv != tp.n(tt.hist_valid)).sum() <= 2 * max_flips * hv.shape[1]
-    hb = hv & tp.n(tt.hist_valid)
-    np.testing.assert_allclose(tp.n(tt.hist)[hb], np.asarray(jt.hist)[hb],
-                               atol=pos_tol)
-
-
 # ------------------------------------------------------------ stages ----
 
 @pytest.fixture(scope="module")
@@ -116,7 +96,7 @@ def test_advance_tracks(ref, cfgs, tracked13):
     got = ts_.advance_tracks(tp.pyramid_to_torch(pyr_prev),
                              tp.pyramid_to_torch(pyr_cur), tst.tracks, tK,
                              tkc, tst.frame + 1, cfgs[1])
-    assert_tracks_close(want.tracks, got)
+    tp.assert_tracks_close(want.tracks, got)
     # refilled slots got fresh corners in both
     assert (np.asarray(want.tracks.age) == 1).sum() > 0
 
@@ -393,7 +373,7 @@ def test_frame_step_over_three_frames(ref, cfgs):
         np.testing.assert_allclose(tu.t, ju.t, atol=5e-3)
         np.testing.assert_array_equal(tu.dyn_ids, ju.dyn_ids)
     assert int(ts_.frame) == int(js_.frame) == 15
-    assert_tracks_close(js_.tracks, ts_.tracks, max_flips=8, pos_tol=1e-2)
+    tp.assert_tracks_close(js_.tracks, ts_.tracks, max_flips=8, pos_tol=1e-2)
 
 
 # -------------------------------------------------------- end to end ----

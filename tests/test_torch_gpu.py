@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: each CUDA kernel
 (build_pyramid, klt_track, extract_windows) against its plain PyTorch
-version at the main path's shapes, the wrappers' input
-checks, and the engine on the card against the same run on the CPU.
+version at the main paths' shapes (one camera and three), the wrappers'
+input checks, and the engine on the card against the same run on the CPU
+(one camera, and two on the rig).
 Where no card is present each test skips (the decision is made inside
 the ``cuda`` fixture, never at import).
 
@@ -25,7 +26,8 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(1, 480, 640), (2, 37, 53)])
+@pytest.mark.parametrize("shape", [(1, 480, 640), (3, 480, 640),
+                                   (2, 37, 53)])
 def test_build_pyramid_kernel_bit_exact(cuda, shape):
     from coslam_torch.ops.pyramid import build_pyramid, build_pyramid_plain
     g = torch.Generator().manual_seed(0)
@@ -65,6 +67,7 @@ def _klt_inputs(C, h, w, n, seed):
 @pytest.mark.parametrize("shape,n,n_levels,with_gain", [
     ((1, 480, 640), 1024, 4, True),
     ((1, 480, 640), 1024, 4, False),
+    ((3, 480, 640), 1024, 4, True),
     ((2, 150, 200), 300, 3, True),
 ])
 def test_klt_track_kernel_matches_plain(cuda, shape, n, n_levels, with_gain):
@@ -106,7 +109,8 @@ def test_extract_windows_kernel_bit_exact(cuda, G):
     from coslam_torch.ops.patches import (extract_windows,
                                           extract_windows_plain)
     g = torch.Generator().manual_seed(G)
-    for (C, h, w, n) in [(1, 480, 640, 1024), (2, 60, 80, 37)]:
+    for (C, h, w, n) in [(1, 480, 640, 1024), (3, 480, 640, 1024),
+                         (2, 60, 80, 37)]:
         imgs = (torch.rand((C, h, w), generator=g) * 255).to(cuda)
         base = torch.stack([torch.randint(-4, w - G + 5, (C, n), generator=g),
                             torch.randint(-4, h - G + 5, (C, n), generator=g)],
@@ -198,3 +202,67 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
     assert len(set(gpu.kf_frames) ^ set(cpu.kf_frames)) <= 2
     for eng in (cpu, gpu):
         assert ate_rmse(*eng.trajectory(0, True), Rs, ts) < 0.20
+
+
+def test_ncc_blocks_on_the_card(cuda):
+    """The NCC blocks of the three-camera step and of the map init (one
+    camera at a time) cut by the window kernel, against the CPU: the
+    window copies are exact, the shift and normalization round within
+    1e-5."""
+    from coslam_torch.ops.ncc import (extract_ncc_blocks,
+                                      extract_ncc_blocks_batched)
+    from coslam_torch.ops.patches import extract_windows
+    rng = np.random.default_rng(5)
+    imgs = np.concatenate([tp.smooth_texture(rng, 480, 640)
+                           for _ in range(3)])
+    pos = rng.uniform([-4, -4], [644, 484], (3, 1024, 2)).astype(np.float32)
+    n0 = extract_windows.launches
+    got = extract_ncc_blocks_batched(tp.t(imgs).to(cuda),
+                                     tp.t(pos).to(cuda), 5)
+    one = extract_ncc_blocks(tp.t(imgs[1]).to(cuda), tp.t(pos[1]).to(cuda))
+    assert extract_windows.launches == n0 + 2
+    want = extract_ncc_blocks_batched(tp.t(imgs), tp.t(pos), 5)
+    for g, w in ((got, want), (one, (want[0][1], want[1][1]))):
+        np.testing.assert_array_equal(tp.n(g[1]), tp.n(w[1]))
+        np.testing.assert_allclose(tp.n(g[0]), tp.n(w[0]), atol=1e-5)
+
+
+def test_two_camera_engine_on_the_card_matches_the_cpu(cuda):
+    """20 frames of the two-camera rig at small_test_config(2, 150, 200) on
+    the card and on the CPU: both bootstrap at frame 0, the same group
+    ids, keyframes one entry apart at most, each camera's ATE under 0.25
+    (the bound of tests/test_pipeline_multicam.py), and every kernel
+    launched on the card (build_pyramid once a frame, klt_track once a
+    tracked frame)."""
+    from coslam_torch.config import small_test_config
+    from coslam_torch.io.ate import ate_rmse
+    from coslam_torch.io.synthetic import (make_room, render_sequence,
+                                           rig_sequence)
+    from coslam_torch.ops.klt import klt_track
+    from coslam_torch.ops.patches import extract_windows
+    from coslam_torch.ops.pyramid import build_pyramid
+    from coslam_torch.slam.pipeline import CoSlamEngine
+    C, n = 2, 20
+    planes = make_room(np.random.default_rng(0), size=10.0)
+    Rs, ts = rig_sequence(C, n, baseline=1.0, forward=0.06)
+    frames = torch.stack([render_sequence(planes, tp.KMAT[0], Rs[c], ts[c],
+                                          tp.H, tp.W, device="cpu")
+                          for c in range(C)], dim=1)
+    counters = (build_pyramid, klt_track, extract_windows)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        n0 = [f.launches for f in counters]
+        eng = CoSlamEngine(small_test_config(C, tp.H, tp.W), *tp.kmats(C),
+                           device=dev)
+        for f in range(n):
+            eng.process_frame(frames[f].to(dev))
+        runs[dev] = (eng, [f.launches - k for f, k in zip(counters, n0)])
+    (cpu, l_cpu), (gpu, l_gpu) = runs["cpu"], runs["cuda"]
+    assert l_cpu == [0, 0, 0]
+    assert l_gpu[:2] == [n, n - 1] and l_gpu[2] > 0
+    assert tp.boot_frame(gpu.stats_log) == tp.boot_frame(cpu.stats_log) == 0
+    np.testing.assert_array_equal(gpu.group_id, cpu.group_id)
+    assert len(set(gpu.kf_frames) ^ set(cpu.kf_frames)) <= 2
+    for eng in (cpu, gpu):
+        for c in range(C):
+            assert ate_rmse(*eng.trajectory(c, True), Rs[c], ts[c]) < 0.25

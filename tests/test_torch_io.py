@@ -43,6 +43,27 @@ def test_render_sequence_matches(h, w):
     np.testing.assert_array_equal(one, got[3])
 
 
+def test_render_pixels_that_hit_no_plane():
+    """Pixels whose ray hits no plane are black, even where plane 0's
+    coordinates are NaN there (a degenerate plane: zero edges); the rest
+    of the view matches the JAX package's render."""
+    from coslam_tpu.io import synthetic as js
+    from coslam_torch.io import synthetic as ts
+    rng = np.random.default_rng(3)
+    z = np.zeros(3, np.float32)
+    planes = [ts.Plane(z, z, z, ts.make_texture(rng, 16, 16)),
+              ts.Plane(np.array([-1.0, -1.0, 5.0]), np.array([2.0, 0, 0]),
+                       np.array([0, 2.0, 0]), ts.make_texture(rng, 16, 16))]
+    K = np.array([[60.0, 0, 40], [0, 60.0, 30], [0, 0, 1]], np.float32)
+    R, t = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+    got = tp.n(ts.render(planes, K, R, t, 60, 80, device="cpu"))
+    want = np.asarray(js.render(planes, K, R, t, 60, 80))
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 0.02
+    assert (got[:, :10] == 0).all() and (got[:, -10:] == 0).all()
+    assert (got[25:35, 35:45] > 0).all()
+
+
 def test_ate_and_umeyama_match(rng):
     from coslam_tpu.io import ate as ja
     from coslam_torch.io import ate as ta

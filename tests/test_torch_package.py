@@ -232,16 +232,15 @@ def test_engine_needs_a_card_or_an_explicit_cpu(monkeypatch):
 
 
 def test_parts_outside_the_slice_raise():
+    """The engine modes (A15) and meshes (A18) raise at construction; with
+    several cameras, the group-merge call site raises (A14): two groups on
+    a grouping tick past merge_min_interval whose maps could overlap."""
+    from types import SimpleNamespace
     from coslam_torch.config import small_test_config
-    from coslam_torch.slam.fused import frame_step
-    from coslam_torch.slam.pipeline import CoSlamEngine
-    from coslam_torch.slam.state import init_state
+    from coslam_torch.slam.pipeline import GROUPING_INTERVAL, CoSlamEngine
     cfg = small_test_config(1, 96, 128)
     K = np.array([[[100.0, 0, 64], [0, 100.0, 48], [0, 0, 1]]], np.float32)
     kc = np.zeros((1, 5), np.float32)
-    with pytest.raises(NotImplementedError, match="A13"):
-        CoSlamEngine(small_test_config(2, 96, 128), np.repeat(K, 2, 0),
-                     np.zeros((2, 5), np.float32), device="cpu")
     for kw in (dict(chunk=4), dict(overlap=True), dict(async_ba=True),
                dict(use_fused=False)):
         with pytest.raises(NotImplementedError, match="A15"):
@@ -249,10 +248,23 @@ def test_parts_outside_the_slice_raise():
     with pytest.raises(NotImplementedError, match="A18"):
         CoSlamEngine(cfg, K, kc, device="cpu", mesh=object())
     cfg2 = small_test_config(2, 96, 128)
-    with pytest.raises(NotImplementedError, match="A13"):
-        frame_step(init_state(cfg2, "cpu"), None,
-                   torch.zeros((2, 96, 128)), torch.as_tensor(
-                       np.repeat(K, 2, 0)), torch.zeros((2, 5)), cfg2)
+    eng = CoSlamEngine(cfg2, np.repeat(K, 2, 0), np.zeros((2, 5), np.float32),
+                       device="cpu")
+    eng.group_id = np.array([0, 1], np.int32)
+    eng._update_grouping = lambda: None           # keep the split
+    eng._merge_possible = lambda: True
+    out = SimpleNamespace(n_inliers=np.array([90, 90]),
+                          coverage=np.array([0.5, 0.5]),
+                          med_err=np.zeros(2), med_depth=np.ones(2))
+    kw = dict(n_mapped=np.array([200, 200]), n_new=0, dyn=None, n_static=0,
+              n_dynamic=0)
+    eng.frame = cfg2.p.merge_min_interval - 1     # too early: no merge
+    eng._intercam_cadence = lambda *a: 0
+    eng._keyframe_ready = lambda out: False
+    eng._shared_cadence(None, out, frame=eng.frame, **kw)
+    eng.frame = cfg2.p.merge_min_interval + GROUPING_INTERVAL
+    with pytest.raises(NotImplementedError, match="A14"):
+        eng._shared_cadence(None, out, frame=eng.frame, **kw)
 
 
 def test_loop_closure_point_raises():

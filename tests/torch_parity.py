@@ -90,25 +90,54 @@ def render_mono_frames(n_frames: int, forward: float = 0.06):
     return frames, Rs, ts
 
 
+def kmats(C: int):
+    """(K [C, 3, 3], kc [C, 5]) numpy for C identical cameras."""
+    return np.repeat(KMAT, C, 0), np.zeros((C, 5), np.float32)
+
+
+def render_rig_frames(C: int, n_frames: int, baseline: float = 1.0,
+                      forward: float = 0.06, quads=None, rng=None):
+    """Frames [F, C, H, W] of a C-camera rig in the synthetic room rendered
+    by the JAX package (the rig of tests/test_pipeline_multicam.py; the
+    poses, numpy, from ``rig_sequence``), with ground truth
+    (Rs [C, F, 3, 3], ts [C, F, 3])."""
+    from coslam_tpu.io.synthetic import make_room, render_sequence
+    from coslam_torch.io.synthetic import rig_sequence
+    rng = np.random.default_rng(0) if rng is None else rng
+    planes = make_room(rng, size=10.0)
+    Rs, ts = rig_sequence(C, n_frames, baseline=baseline, forward=forward)
+    frames = np.zeros((n_frames, C, H, W), np.float32)
+    for c in range(C):
+        frames[:, c] = render_sequence(planes, KMAT[0], Rs[c], ts[c], H, W,
+                                       quads=quads)
+    return frames, Rs, ts
+
+
 def run_jax_engine(frames, snapshots=()):
-    """Drive the JAX engine over ``frames`` at small_test_config(1, H, W).
-    Returns a dict: the engine's host logs, its corrected trajectory and,
+    """Drive the JAX engine over ``frames`` [F, C, H, W] (or [F, H, W] for
+    one camera) at small_test_config(C, H, W). Returns a dict: the
+    engine's host logs, its corrected trajectories (one per camera) and,
     for each frame k in ``snapshots``, (state, pyr_prev) as numpy trees
     right after frame k was processed."""
     from coslam_tpu.config import small_test_config
     from coslam_tpu.slam.pipeline import CoSlamEngine
-    cfg = small_test_config(num_cameras=1, h=H, w=W)
-    eng = CoSlamEngine(cfg, KMAT, KC)
+    if frames.ndim == 3:
+        frames = frames[:, None]
+    C = frames.shape[1]
+    cfg = small_test_config(num_cameras=C, h=H, w=W)
+    eng = CoSlamEngine(cfg, *kmats(C))
     snaps = {}
     for f in range(frames.shape[0]):
-        eng.process_frame(frames[f][None])
+        eng.process_frame(frames[f])
         if f in snapshots:
             snaps[f] = (to_numpy(eng.state), to_numpy(eng.pyr_prev))
-    Rs, ts = eng.trajectory(0, correct=True)
+    trajs = [tuple(np.asarray(a) for a in eng.trajectory(c, correct=True))
+             for c in range(C)]
     return dict(snaps=snaps, kf_frames=list(eng.kf_frames),
-                boot_frame=boot_frame(eng.stats_log),
-                traj=(np.asarray(Rs), np.asarray(ts)),
-                stats_log=eng.stats_log)
+                boot_frame=boot_frame(eng.stats_log), traj=trajs[0],
+                trajs=trajs, stats_log=eng.stats_log,
+                group_id=np.asarray(eng.group_id).copy(),
+                group_hist=list(eng.group_hist), dyn_log=eng.dyn_log)
 
 
 def boot_frame(stats_log):
@@ -117,3 +146,29 @@ def boot_frame(stats_log):
         if s.get("bootstrap"):
             return s["frame"]
     return None
+
+
+def assert_tracks_close(jt, tt, max_flips=2, pos_tol=1e-3, max_mpt_diff=0):
+    """A JAX track table (jt) against the port's (tt): at most
+    ``max_flips`` slots whose validity differs, positions and history to
+    ``pos_tol`` px, integer fields equal where both are valid but for at
+    most ``max_mpt_diff`` map bindings."""
+    jv, tv = np.asarray(jt.valid), n(tt.valid)
+    assert (jv != tv).sum() <= max_flips
+    both = jv & tv
+    assert both.sum() > 50
+    for f in ("pos", "raw"):
+        np.testing.assert_allclose(n(getattr(tt, f))[both],
+                                   np.asarray(getattr(jt, f))[both],
+                                   atol=pos_tol, err_msg=f)
+    for f in ("age", "dyn_votes"):
+        np.testing.assert_array_equal(n(getattr(tt, f))[both],
+                                      np.asarray(getattr(jt, f))[both],
+                                      err_msg=f)
+    assert (n(tt.mpt)[both] != np.asarray(jt.mpt)[both]).sum() \
+        <= max_mpt_diff
+    hv = np.asarray(jt.hist_valid)
+    assert (hv != n(tt.hist_valid)).sum() <= 2 * max_flips * hv.shape[1]
+    hb = hv & n(tt.hist_valid)
+    np.testing.assert_allclose(n(tt.hist)[hb], np.asarray(jt.hist)[hb],
+                               atol=pos_tol)
