@@ -1,31 +1,38 @@
 """Chip smoke test of coslam_torch on one CUDA card.
 
 Builds the CUDA kernels from coslam_torch/csrc (build_pyramid, klt_track,
-extract_windows), holds each against its plain PyTorch twin at both main
-paths' shapes (one camera, and three cameras) and times both (on frames
-rendered on the card, held against the same frames rendered on the
-CPU), then drives
-the engine end to end on two paths at the production configuration
-(480x640, 4 KLT levels, 1024 features per camera, 8192 map points, 64
-keyframes, BA window 5), each over 100 rendered frames of the synthetic
-room:
-- monocular: bootstrap, keyframes, BA, finiteness, the Sim(3)-aligned ATE;
-- threecam_dyn (three cameras on a rig, a moving textured quad): the
-  wide-baseline bootstrap at frame 0, keyframes, BA, every camera's ATE,
-  dynamic points, inter-camera mapping and the camera groups;
+extract_windows), holds each against its plain PyTorch twin at the
+paths' shapes (one camera, three cameras, and the loop closure's G = 43
+template search) and times both (on frames rendered on the card, held
+against the same frames rendered on the CPU), then drives the engine end
+to end on four paths at the production configuration (480x640, 4 KLT
+levels, 1024 features per camera, 8192 map points, 64 keyframes, BA
+window 5) in the synthetic room:
+- monocular, 100 frames: bootstrap, keyframes, BA, finiteness, the
+  Sim(3)-aligned ATE;
+- threecam_dyn, 100 frames (three cameras on a rig, a moving textured
+  quad): the wide-baseline bootstrap at frame 0, keyframes, BA, every
+  camera's ATE, dynamic points, inter-camera mapping and the groups;
+- splitmerge, 400 frames (two cameras; camera 1 yaws away and back): the
+  groups split, the merge bridge rejoins them, every camera's ATE;
+- mono_loop, 400 frames (one camera maps a wall, turns away and comes
+  back): a loop closure anchored on the dormant map, the ATE;
 and checks that every kernel ran on each path (launch counts set to 0
 just before a path and read just after it).
 
-Before each path, a short run at the CPU tests' size holds the engine on
-the card against the same engine on the CPU (the plain PyTorch versions,
-which tests/test_torch_*.py hold against the JAX package): one camera
-over 30 frames, two cameras over 20.
+Short runs at the CPU tests' size hold the engine on the card against the
+same engine on the CPU (the plain PyTorch versions, which
+tests/test_torch_*.py hold against the JAX package): one camera over 30
+frames, two cameras over 20, and mono_loop cut to 150x200 over 181 frames
+(a loop closure).
 
-After each path, torch.profiler traces a few tracked frames of a fresh
-run of it: device-busy time, the device's idle share and kernel launches
-per frame, in all and inside the ``build_pyramid`` and ``klt_track``
-ranges; ``--profile-table PATH`` also writes the operator tables to PATH
-(the second path's beside it, with a ``.threecam`` suffix).
+torch.profiler traces 5 tracked frames of a fresh run of mono and
+threecam_dyn, and of splitmerge around its first merge (replayed from a
+copy of the engine taken two frames before it): device-busy time,
+the device's idle share and kernel launches per frame, in all and inside
+the ``build_pyramid`` and ``klt_track`` ranges; ``--profile-table PATH``
+also writes the operator tables to PATH (the others beside it, with a
+``.threecam`` and ``.splitmerge`` suffix).
 
     python3 chip_smoke.py [--profile-table PATH]
 
@@ -51,7 +58,9 @@ import torch  # noqa: E402
 
 H, W = 480, 640
 FRAMES = 100
+LONG_FRAMES = 400                # splitmerge and mono_loop
 N_FEAT = 1024
+N_LOOP = 256                     # dormant points one closure searches
 KPROD = np.array([[500.0, 0, W / 2], [0, 500.0, H / 2], [0, 0, 1]],
                  np.float32)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
@@ -345,16 +354,16 @@ def klt_records(pyr0, pyr1, n_lv: int, label: str):
     return rec
 
 
-def windows_record(C: int, h: int, w: int, G: int, gen):
-    """extract_windows on a random [C, h, w] image batch at N_FEAT random
+def windows_record(C: int, h: int, w: int, G: int, gen, n: int = N_FEAT):
+    """extract_windows on a random [C, h, w] image batch at ``n`` random
     origins per camera (some clamped): bit for bit against its plain twin,
     then timed with the torch.gather of the same copy."""
     from coslam_torch.ops.patches import (extract_windows,
                                           extract_windows_plain)
     dev = torch.device("cuda")
     imgs = (torch.rand((C, h, w), generator=gen) * 255).to(dev)
-    bx = torch.randint(-3, w - G + 4, (C, N_FEAT, 1), generator=gen)
-    by = torch.randint(-3, h - G + 4, (C, N_FEAT, 1), generator=gen)
+    bx = torch.randint(-3, w - G + 4, (C, n, 1), generator=gen)
+    by = torch.randint(-3, h - G + 4, (C, n, 1), generator=gen)
     base = torch.cat([bx, by], -1).to(torch.int32).to(dev)
     got = extract_windows(imgs, base, G)
     ref = extract_windows_plain(imgs, base, G)
@@ -375,7 +384,7 @@ def windows_record(C: int, h: int, w: int, G: int, gen):
     idx = ((y0[..., None, None] + g[:, None]) * w
            + (x0[..., None, None] + g[None, :])).reshape(C, -1)
     flat = imgs.reshape(C, -1)
-    return dict(shape=f"[{C},{h},{w}] G={G} N={N_FEAT}",
+    return dict(shape=f"[{C},{h},{w}] G={G} N={n}",
                 max_abs_err=float((got - ref).abs().max()),
                 ms=device_time_ms(lambda: extract_windows(imgs, base, G)),
                 plain_ms=device_time_ms(
@@ -421,7 +430,36 @@ def phase_kernels():
         rec = windows_record(C, H >> lv, W >> lv, G, gen)
         res["extract_windows"].append(rec)
         log(f"extract_windows {rec}")
+    # the loop closure's template search: G = 43 (radius 16), N = 256
+    rec = windows_record(1, H, W, 43, gen, n=N_LOOP)
+    res["extract_windows"].append(rec)
+    log(f"extract_windows {rec}")
+    ncc_search_agreement(mono[0], gen)
     return res
+
+
+def ncc_search_agreement(img, gen):
+    """ncc_search as loop closure calls it (radius 16, 256 centres a few
+    px off the templates' true positions) on the card against the CPU:
+    the windows are exact, the convolutions sum in another order, so the
+    best pixel agrees on >= 99% of the centres and the scores to 1e-4."""
+    from coslam_torch.ops.ncc import extract_ncc_blocks, ncc_search
+    img = img.cpu()
+    true = torch.round(torch.rand((N_LOOP, 2), generator=gen)
+                       * torch.tensor([W - 60.0, H - 60.0]) + 30.0)
+    centers = true + torch.randint(-12, 13, (N_LOOP, 2), generator=gen)
+    tmpl, _ = extract_ncc_blocks(img, true, 5)
+    got = ncc_search(img.cuda(), centers.cuda(), tmpl.cuda(),
+                     search_radius=16, patch_radius=5)
+    want = ncc_search(img, centers, tmpl, search_radius=16, patch_radius=5)
+    same = (got[0].cpu() == want[0]).all(1)
+    err = float((got[1].cpu() - want[1]).abs()[same].max())
+    log(f"ncc_search G=43 N={N_LOOP} card against cpu: same best pixel on "
+        f"{float(same.float().mean()):.4f} of the centres, max score diff "
+        f"{err}")
+    check("ncc_search", {"same best pixel on >= 99%":
+                         float(same.float().mean()) >= 0.99,
+                         "scores within 1e-4": err <= 1e-4})
 
 
 def kernel_counters():
@@ -432,18 +470,68 @@ def kernel_counters():
             "extract_windows": extract_windows}
 
 
-def run_engine(cfg, K, frames, device):
+def time_attempts(eng, device):
+    """Record the wall time of every merge attempt and loop-closure attempt
+    of ``eng`` into ``eng.attempts`` as (kind, frame, ms, committed),
+    between device syncs."""
+    eng.attempts = []
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def wrap(name, kind, tried, committed):
+        inner = getattr(eng, name)
+
+        def timed(pyr):
+            n0 = committed()
+            sync()
+            t0 = time.perf_counter()
+            inner(pyr)
+            sync()
+            if tried():
+                eng.attempts.append((kind, eng.frame,
+                                     (time.perf_counter() - t0) * 1e3,
+                                     committed() > n0))
+        setattr(eng, name, timed)
+    wrap("_try_merge", "merge", lambda: True, lambda: len(eng.merge_log))
+    wrap("_try_loop_closure", "loop",
+         lambda: eng._last_loop_attempt == eng.frame,
+         lambda: len(eng.loop_log))
+
+
+def engine_copy(eng):
+    """A deep copy of ``eng`` that runs the engine's own merge and loop
+    methods (the timing wrappers of time_attempts stay with ``eng``)."""
+    import copy
+    new = object.__new__(type(eng))
+    new.__dict__.update(copy.deepcopy({
+        k: v for k, v in eng.__dict__.items()
+        if k not in ("_try_merge", "_try_loop_closure", "attempts",
+                     "snapshots")}))
+    return new
+
+
+def run_engine(cfg, K, frames, device, snapshot_when=None):
     """Drive a fresh engine over ``frames`` [F, C, H, W]. Returns (engine,
     per-frame wall ms, ending in a device sync, and the kernel launches
-    of this run: the counts are set to 0 just before it)."""
+    of this run: the counts are set to 0 just before it). Merge and loop
+    attempts are timed into ``engine.attempts``. Before each frame for
+    which ``snapshot_when(engine)`` holds, a copy of the engine is kept
+    (untimed) in ``engine.snapshots``: the last three, as (frame, copy)."""
+    import collections
     from coslam_torch.slam.pipeline import CoSlamEngine
     C = cfg.num_cameras
     eng = CoSlamEngine(cfg, K, np.zeros((C, 5), np.float32), device=device)
+    time_attempts(eng, device)
+    eng.snapshots = collections.deque(maxlen=3)
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
     frame_ms = []
     for f in range(frames.shape[0]):
+        if snapshot_when is not None and snapshot_when(eng):
+            eng.snapshots.append((f, engine_copy(eng)))
         t0 = time.perf_counter()
         eng.process_frame(frames[f].to(device))
         if device == "cuda":
@@ -664,19 +752,299 @@ def phase_multicam_small_agreement():
         **{f"{k} launched": v > 0 for k, v in launched.items()}})
 
 
-def phase_profile(cfg, K, frames, card: str, table_path, warm: int,
-                  label: str):
-    """torch.profiler over tracked frames of a fresh run: wall and
-    device-busy time per frame, the device's idle share, kernel launches
-    per frame, and (to ``table_path``, when given) the table of operators
-    by device time."""
-    from torch.profiler import ProfilerActivity, profile
+def phase_loop_small_agreement():
+    """Loop closure on the card against the CPU at the CPU tests' size:
+    the mono_loop scene cut to 150x200 (f = 156.25) and 200 frames, run
+    over its first 181, with the closure thresholds of
+    tests/test_loop_closure.py (closures 20 apart, 12 dormant projections,
+    7 inliers) and points dormant after 60 frames (the cut dwell lasts
+    ~100). Both commit a closure anchored on
+    the dormant map, their first closures at most one grouping tick (5
+    frames) apart, camera centres within 5% of the path (RMS, after
+    Sim(3) alignment). (The 88-frame scene of tests/test_loop_closure.py
+    is not used here: on this package's render its one closure attempt
+    lands on a knife edge, ~15 px of drift against a 16 px search, and
+    commits or not with the CPU's thread count; its CPU test feeds the JAX
+    package's render.)"""
+    import dataclasses
+    from coslam_torch.config import small_test_config
+    from coslam_torch.io.ate import ate_rmse, camera_centers, umeyama
+    h, w, age, n_run = 150, 200, 60, 181
+    K = KPROD * np.float32(w / W)
+    K[2, 2] = 1.0
+    frames, Rs_gt, ts_gt = mono_loop_scene(200, "cpu", h, w, K)
+    # the run stops before the second closure attempt (frame 186), whose
+    # Sim(3) scale evidence sits on its acceptance threshold: one card run
+    # took a scale of 1.44 where the CPU kept 1.0
+    frames, Rs_gt, ts_gt = frames[:n_run], Rs_gt[:n_run], ts_gt[:n_run]
+    K = K[None]
+    cfg = small_test_config(1, h, w)
+    cfg = cfg.replace(p=dataclasses.replace(
+        cfg.p, loop_dormant_age=age, loop_min_interval=20,
+        loop_overlap_min=12, loop_min_inliers=7))
+    cpu, _, _ = run_engine(cfg, K, frames, "cpu")
+    gpu, _, launched = run_engine(cfg, K, frames, "cuda")
+    trajs = [e.trajectory(0, True, chain_scales=True) for e in (cpu, gpu)]
+    c_cpu, c_gpu = (camera_centers(*tr) for tr in trajs)
+    s, R, t = umeyama(c_gpu, c_cpu)
+    gaps = np.linalg.norm((s * (R @ c_gpu.T)).T + t - c_cpu, axis=-1)
+    rms = float(np.sqrt(np.mean(gaps ** 2)))
+    path = float(np.linalg.norm(np.diff(c_cpu, axis=0), axis=-1).sum())
+    ates = [ate_rmse(*tr, Rs_gt, ts_gt) for tr in trajs]
+    log(f"loop small input: closures cpu {cpu.loop_log} card {gpu.loop_log}")
+    log(f"loop small input: centre gap rms {rms:.6f} over a {path:.4f} "
+        f"path; ATE cpu {ates[0]:.6f} card {ates[1]:.6f}; card launches "
+        f"{launched}")
+
+    def anchored(eng):
+        return any(lc["frame"] - lc["f_anchor"] >= age for lc in eng.loop_log)
+    check("loop small input", {
+        "closure on the CPU anchored on the dormant map": anchored(cpu),
+        "closure on the card anchored on the dormant map": anchored(gpu),
+        "first closures one grouping tick apart":
+            bool(cpu.loop_log and gpu.loop_log) and
+            abs(cpu.loop_log[0]["frame"] - gpu.loop_log[0]["frame"]) <= 5,
+        "centres within 5% of path (rms)": rms < 0.05 * path,
+        **{f"{k} launched": v > 0 for k, v in launched.items()}})
+
+
+def splitmerge_scene(n: int, dev):
+    """The splitmerge scene of examples/accuracy_bench.py
+    (config_splitmerge with _rig_frames) from seed 0 where that script
+    uses 7: two cameras on a rig (baseline 1.0, orbit_trajectory forward
+    0.02); camera 1 yaws to 1.2 rad over frames 0.2n-0.4n, holds until
+    0.55n and returns by 0.75n. The generator is drawn in that script's
+    order (one uniform, the room) and the frames are rounded to float16.
+    Returns (frames [F, 2, H, W] on ``dev``, Rs_gt [2, F, 3, 3],
+    ts_gt [2, F, 3])."""
+    from coslam_torch.geometry.se3 import so3_exp_np
+    from coslam_torch.io.synthetic import (make_room, multi_cam_rig,
+                                           orbit_trajectory, render_sequence)
+    sep0, sep1, ret0, ret1 = (int(n * a) for a in (0.2, 0.4, 0.55, 0.75))
+
+    def yaw1(f):
+        if f < sep0 or f >= ret1:
+            return 0.0
+        if f < sep1:
+            return 1.2 * (f - sep0) / (sep1 - sep0)
+        if f < ret0:
+            return 1.2
+        return 1.2 * (ret1 - f) / (ret1 - ret0)
+
+    Rr, tr = orbit_trajectory(n, forward=0.02)
+    rot_c, offs_c = multi_cam_rig(2, baseline=1.0)
+    Rs = np.zeros((2, n, 3, 3), np.float32)
+    ts = np.zeros((2, n, 3), np.float32)
+    for f in range(n):
+        c_rig = -Rr[f].T @ tr[f]
+        for c in range(2):
+            Rc = rot_c[c] @ Rr[f]
+            if c == 1 and yaw1(f):
+                Rc = so3_exp_np(np.array([0.0, yaw1(f), 0.0])) @ Rc
+            Rs[c, f] = Rc
+            ts[c, f] = -Rc @ (c_rig + Rr[f].T @ offs_c[c])
+    rng = np.random.default_rng(0)
+    rng.uniform()
+    planes = make_room(rng, size=10.0)
+    frames = torch.stack([render_sequence(planes, KPROD, Rs[c], ts[c], H, W,
+                                          device=dev) for c in range(2)],
+                         dim=1)
+    return frames.half().float(), Rs, ts
+
+
+def mono_loop_scene(n: int, dev, h: int = H, w: int = W, K=KPROD):
+    """The mono_loop scene of examples/accuracy_bench.py (config_mono_loop)
+    from seed 0 where that script uses 7: a lateral sweep maps the back
+    wall (to 0.15n), the camera yaws out to 1.2 rad (to 0.3n), dwells (to
+    0.82n), yaws back (to 0.92n) and dwells on the revisit; the generator
+    drawn in that script's order, the frames rounded to float16. Returns
+    (frames [F, 1, h, w] on ``dev``, Rs_gt [F, 3, 3], ts_gt [F, 3])."""
+    from coslam_torch.geometry.se3 import so3_exp_np
+    from coslam_torch.io.synthetic import make_room, render_sequence
+    f_map, f_out, f_back, f_home = (int(n * a)
+                                    for a in (0.15, 0.30, 0.82, 0.92))
+    yaws = np.concatenate([
+        np.zeros(f_map), np.linspace(0, 1.2, f_out - f_map),
+        np.full(f_back - f_out, 1.2), np.linspace(1.2, 0.0, f_home - f_back),
+        np.zeros(n - f_home)])
+    Rs = np.zeros((n, 3, 3), np.float32)
+    ts = np.zeros((n, 3), np.float32)
+    for f in range(n):
+        Rs[f] = so3_exp_np(np.array([0.0, yaws[f], 0.0]))
+        c = np.array([0.9 * np.sin(0.06 * f), 0.05 * np.sin(0.1 * f),
+                      0.002 * f], np.float32)
+        ts[f] = -Rs[f] @ c
+    rng = np.random.default_rng(0)
+    rng.uniform()
+    frames = render_sequence(make_room(rng, size=10.0), K, Rs, ts, h, w,
+                             device=dev)[:, None]
+    return frames.half().float(), Rs, ts
+
+
+def attempt_summary(eng, label: str):
+    """Log the merge and loop logs and the wall time of every attempt."""
+    log(f"{label}: merge_log " + json.dumps([
+        {k: (round(v, 6) if isinstance(v, float) else v)
+         for k, v in m.items()} for m in eng.merge_log]))
+    log(f"{label}: loop_log " + json.dumps([
+        {k: (round(v, 6) if isinstance(v, float) else v)
+         for k, v in m.items()} for m in eng.loop_log]))
+    for kind in ("merge", "loop"):
+        rows = [(f, round(ms, 3), ok) for k, f, ms, ok in eng.attempts
+                if k == kind]
+        log(f"{label}: {kind} attempts (frame, wall ms, committed): {rows}")
+
+
+def phase_splitmerge_path(card: str):
+    """splitmerge at the production configuration over 400 frames: the
+    groups split in frames 160-220, a merge is logged at frame >= 220, the
+    groups are rejoined at the last frame, every camera's ATE (chain
+    scales, as the accuracy harness computes it) under 2% of camera 0's
+    path, finite poses and map, all three kernels launched. Returns (the
+    launches, a copy of the engine from two frames before the first
+    merge, the frames, that copy's next frame)."""
+    from coslam_torch.io.ate import ate_rmse, camera_centers
+    n = LONG_FRAMES
+    t0 = time.perf_counter()
+    frames, Rs_gt, ts_gt = splitmerge_scene(n, "cuda")
+    torch.cuda.synchronize()
+    log(f"splitmerge: rendered {tuple(frames.shape)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cfg = production_cfg(2)
+    K = np.repeat(KPROD[None], 2, 0)
+    t_run = time.perf_counter()
+    # copies of the engine from the frames before the first merge, split
+    # and unmerged (the profile replays the merge from one)
+    eng, frame_ms, launches = run_engine(
+        cfg, K, frames, "cuda", snapshot_when=lambda e: not e.merge_log and
+        len(set(e.group_id.tolist())) > 1)
+    trajs = [eng.trajectory(c, correct=True, chain_scales=True)
+             for c in range(2)]
+    run_s = time.perf_counter() - t_run
+    ids, xyz, cov = eng.map_points()
+    path = float(np.linalg.norm(np.diff(camera_centers(Rs_gt[0], ts_gt[0]),
+                                        axis=0), axis=-1).sum())
+    ates = [ate_rmse(*trajs[c], Rs_gt[c], ts_gt[c]) for c in range(2)]
+    med, trk, p90 = frame_times(eng, frame_ms)
+    gh = eng.group_hist
+    trans = [(i, g) for i, g in enumerate(gh) if i and g != gh[i - 1]]
+    n_tracked = sum("med_err" in s for s in eng.stats_log)
+    log(f"splitmerge: bootstrap {boot_frame(eng)} keyframes "
+        f"{len(eng.kf_frames)} ba_runs {eng.ba_runs} map_points {len(ids)}")
+    log(f"splitmerge: group transitions {trans}")
+    attempt_summary(eng, "splitmerge")
+    log(f"splitmerge: ATE per camera {[round(a, 6) for a in ates]} over a "
+        f"{path:.4f} camera-0 path "
+        f"({[round(100 * a / path, 4) for a in ates]}%)")
+    log(f"splitmerge: per-frame ms median {med:.3f} (all {n}), "
+        f"tracked-frame median {trk:.3f}, p90 {p90:.3f}, total "
+        f"{run_s:.2f} s; card {card}")
+    log(f"splitmerge: kernel launches {launches}, per tracked frame "
+        f"{ {k: round(v / max(n_tracked, 1), 3) for k, v in launches.items()} }")
+    check("splitmerge", {
+        "groups split in frames 160-220":
+            any(g[0] != g[1] for g in gh[160:220]),
+        "merge at frame >= 220":
+            any(m["frame"] >= 220 for m in eng.merge_log),
+        "groups rejoined at the last frame": gh[-1][0] == gh[-1][1],
+        "every camera's ATE < 2% of the camera-0 path":
+            max(ates) < 0.02 * path,
+        "finite poses": all(np.isfinite(R).all() and np.isfinite(t).all()
+                            for R, t in trajs),
+        "finite map": bool(len(ids) > 0 and np.isfinite(xyz).all()
+                           and np.isfinite(cov).all()),
+        **{f"{name} launched": k > 0 for name, k in launches.items()},
+    })
+    f0, snap = eng.snapshots[0]     # two frames before the first merge
+    return launches, snap, frames, f0
+
+
+def phase_mono_loop_path(card: str):
+    """mono_loop at the production configuration over 400 frames, default
+    closure thresholds: a closure anchored at least loop_dormant_age
+    frames before its frame, the ATE (chain scales) under 2% of the path,
+    and every G = 43 search of a closure attempt one launch of the window
+    kernel. (Counting all window launches against the tracked frames does
+    not show the search: a tracked frame cuts NCC blocks only when it mints
+    map points, so the run's total lies near the tracked-frame count with
+    or without it.)"""
+    import coslam_torch.slam.loop as loop_mod
+    from coslam_torch.ops.patches import extract_windows
+    from coslam_torch.io.ate import ate_rmse, camera_centers
+    n = LONG_FRAMES
+    t0 = time.perf_counter()
+    frames, Rs_gt, ts_gt = mono_loop_scene(n, "cuda")
+    torch.cuda.synchronize()
+    log(f"mono_loop: rendered {tuple(frames.shape)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cfg = production_cfg(1)
+    searches = []       # window launches of each closure's ncc_search
+    search = loop_mod.ncc_search
+
+    def counted_search(*args, **kw):
+        n0 = extract_windows.launches
+        out = search(*args, **kw)
+        searches.append(extract_windows.launches - n0)
+        return out
+    loop_mod.ncc_search = counted_search
+    t_run = time.perf_counter()
+    try:
+        eng, frame_ms, launches = run_engine(cfg, KPROD[None], frames,
+                                             "cuda")
+    finally:
+        loop_mod.ncc_search = search
+    Rs, ts = eng.trajectory(0, correct=True, chain_scales=True)
+    run_s = time.perf_counter() - t_run
+    ids, xyz, cov = eng.map_points()
+    path = float(np.linalg.norm(np.diff(camera_centers(Rs_gt, ts_gt),
+                                        axis=0), axis=-1).sum())
+    ate = ate_rmse(Rs, ts, Rs_gt, ts_gt)
+    med, trk, p90 = frame_times(eng, frame_ms)
+    n_tracked = sum("med_err" in s for s in eng.stats_log)
+    age = cfg.p.loop_dormant_age
+    log(f"mono_loop: bootstrap {boot_frame(eng)} keyframes "
+        f"{len(eng.kf_frames)} ba_runs {eng.ba_runs} map_points {len(ids)}")
+    attempt_summary(eng, "mono_loop")
+    log(f"mono_loop: ATE {ate:.6f} over a {path:.4f} path "
+        f"({100 * ate / path:.4f}%)")
+    log(f"mono_loop: per-frame ms median {med:.3f} (all {n}), "
+        f"tracked-frame median {trk:.3f}, p90 {p90:.3f}, total "
+        f"{run_s:.2f} s; card {card}")
+    log(f"mono_loop: kernel launches {launches}, {n_tracked} tracked "
+        f"frames; window launches of each closure search (G = 43): "
+        f"{searches}")
+    check("mono_loop", {
+        "closure anchored on the dormant map":
+            any(lc["frame"] - lc["f_anchor"] >= age for lc in eng.loop_log),
+        "ATE < 2% of path": ate < 0.02 * path,
+        "finite poses": bool(np.isfinite(Rs).all() and np.isfinite(ts).all()),
+        "finite map": bool(len(ids) > 0 and np.isfinite(xyz).all()
+                           and np.isfinite(cov).all()),
+        "each closure search one window launch":
+            bool(searches) and all(k == 1 for k in searches),
+        **{f"{name} launched": k > 0 for name, k in launches.items()},
+    })
+    return launches
+
+
+def warmed_engine(cfg, K, frames, warm: int):
+    """A fresh engine on the card driven over the first ``warm`` frames."""
     from coslam_torch.slam.pipeline import CoSlamEngine
-    n = 5
     C = cfg.num_cameras
     eng = CoSlamEngine(cfg, K, np.zeros((C, 5), np.float32), device="cuda")
     for f in range(warm):
         eng.process_frame(frames[f])
+    return eng
+
+
+def phase_profile(eng, frames, warm: int, card: str, table_path,
+                  label: str):
+    """torch.profiler over the next 5 tracked frames of ``eng``, an engine
+    that has processed frames 0..warm-1: wall and device-busy time per
+    frame, the device's idle share, kernel launches per frame, and (to
+    ``table_path``, when given) the table of operators by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    n = 5
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -735,7 +1103,9 @@ def phase_profile(cfg, K, frames, card: str, table_path, warm: int,
     log(f"profile {label}: {n} tracked frames ({warm}..{warm + n - 1}), wall "
         f"{wall_ms:.3f} ms/frame, device busy {busy_ms:.3f} ms/frame, idle "
         f"share {1.0 - busy_ms / wall_ms:.4f}, {launches / n:.1f} kernel "
-        f"launches/frame; card {card}")
+        f"launches/frame; merges in the window "
+        f"{[m['frame'] for m in eng.merge_log if m['frame'] >= warm]}; "
+        f"card {card}")
     for name, rec in ranges.items():
         log(f"profile {label}: inside {name}: {rec}")
 
@@ -745,17 +1115,26 @@ def main():
     ap.add_argument("--profile-table", default=None,
                     help="write the profiler's operator tables here")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     name, count, smi = phase_device()
     phase_build()
     per_shape = phase_kernels()
     phase_small_agreement()
-    mono, run = phase_main_path(smi)
-    phase_profile(*run, smi, args.profile_table, warm=30, label="mono")
+    mono, (cfg, K, frames) = phase_main_path(smi)
+    phase_profile(warmed_engine(cfg, K, frames, 30), frames, 30, smi,
+                  args.profile_table, label="mono")
     phase_multicam_small_agreement()
-    multi, run = phase_multicam_path(smi)
-    phase_profile(*run, smi, args.profile_table and
-                  args.profile_table + ".threecam", warm=20,
+    multi, (cfg, K, frames) = phase_multicam_path(smi)
+    phase_profile(warmed_engine(cfg, K, frames, 20), frames, 20, smi,
+                  args.profile_table and args.profile_table + ".threecam",
                   label="threecam_dyn")
+    phase_loop_small_agreement()
+    split, eng, frames, f0 = phase_splitmerge_path(smi)
+    phase_profile(eng, frames, f0, smi, args.profile_table and
+                  args.profile_table + ".splitmerge", label="splitmerge")
+    loop = phase_mono_loop_path(smi)
+    by_path = {"mono": mono, "threecam_dyn": multi, "splitmerge": split,
+               "mono_loop": loop}
     repo = "coslam_tpu"
     meta = {
         "build_pyramid": dict(
@@ -771,14 +1150,21 @@ def main():
     kernels = []
     for kname, recs in per_shape.items():
         head = recs[0]          # the three-camera path's shape
-        kernels.append(dict(
-            name=kname, **meta[kname], launches=mono[kname] + multi[kname],
-            launches_by_path={"mono": mono[kname],
-                              "threecam_dyn": multi[kname]},
+        rec = dict(
+            name=kname, **meta[kname],
+            launches=sum(p[kname] for p in by_path.values()),
+            launches_by_path={p: c[kname] for p, c in by_path.items()},
             max_abs_err=max(r["max_abs_err"] for r in recs),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-            library_ms=head["library_ms"], shape=head["shape"]))
+            library_ms=head["library_ms"], shape=head["shape"])
+        if kname == "extract_windows":
+            loop_rec = recs[-1]     # the loop closure's G = 43 search
+            rec["loop_search"] = {k: loop_rec[k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}
+        kernels.append(rec)
+    log(f"total wall time {time.perf_counter() - t_start:.2f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,8 @@
 //
 // Replaces: coslam_tpu/ops/patches.py::_extract_windows_pallas, the Pallas
 // TPU kernel behind extract_windows (KLT: G = 14 templates and G = 24
-// targets per pyramid level; NCC: G = 12 blocks; loop closure's ncc_search
-// will call it with G = 23).
+// targets per pyramid level; NCC: G = 12 blocks; the engine's loop
+// closure searches with ncc_search at radius 16, G = 43, N = 256).
 //
 // The output is a verbatim copy of pixels, so it is bit-identical to the
 // plain PyTorch twin (ops/patches.py::extract_windows_plain, the flat-index

@@ -1,20 +1,20 @@
-"""NCC appearance blocks and dense score matrices (the port of
-``coslam_tpu/ops/ncc.py``; the template search ``ncc_search`` waits for
-loop closure).
+"""NCC appearance blocks, dense score matrices and the dense template
+search (the port of ``coslam_tpu/ops/ncc.py``).
 
 Blocks are stored pre-normalized (zero mean, unit norm), so an NCC score
 is one dot product and an A x B score matrix one matrix product.
 
 The JAX package cuts the windows of one image's blocks with bf16 hi/lo
 one-hot matrix products (``extract_windows_onehot``, a TPU formulation
-accurate to ~2^-16 relative); here every block goes through
-``ops/patches.py::extract_windows`` (the window kernel on the card), which
-copies pixels exactly.
+accurate to ~2^-16 relative); here every block, and every search window
+of ``ncc_search``, goes through ``ops/patches.py::extract_windows`` (the
+window kernel on the card), which copies pixels exactly.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from coslam_torch.ops.patches import extract_windows, frac_shift
 
@@ -68,4 +68,53 @@ def ncc_score_matrix(blocks_a: torch.Tensor, blocks_b: torch.Tensor,
     s = blocks_a @ blocks_b.T
     bad = ~(valid_a[:, None] & valid_b[None, :])
     return torch.where(bad, torch.full_like(s, NCC_INVALID), s)
+
+
+def ncc_pairwise(blocks_a: torch.Tensor, blocks_b: torch.Tensor):
+    """Row-wise NCC of aligned block sets [N, S] -> [N] (matchNCCBlock for
+    a known point)."""
+    return torch.sum(blocks_a * blocks_b, dim=-1)
+
+
+def ncc_search(img: torch.Tensor, centers: torch.Tensor,
+               templates: torch.Tensor, search_radius: int = 6,
+               patch_radius: int = 5):
+    """Dense NCC template search around projected positions (the
+    re-acquisition primitive of loop closure: the true patch is still in
+    the image where redetected corners land a few px off).
+
+    img: [H, W]; centers: [N, 2] (x, y); templates: [N, (2r+1)^2]
+    pre-normalized blocks. Scans every integer offset within
+    ``search_radius`` and returns (best_px [N, 2], best_score [N]); a
+    centre whose search window was clamped at the border scores
+    NCC_INVALID. The G x G windows (G = 2 (r + search_radius) + 1) come
+    from ``extract_windows``; the correlation is one grouped convolution
+    and the window sums one convolution with a box of ones."""
+    h, w = img.shape
+    N = centers.shape[0]
+    S = 2 * patch_radius + 1
+    sr = search_radius
+    G = S + 2 * sr
+    lim = torch.tensor([w - G - 1, h - G - 1], dtype=torch.int32,
+                       device=centers.device)
+    base = torch.round(centers).to(torch.int32) - (patch_radius + sr)
+    basec = torch.clamp(base, min=torch.zeros_like(lim), max=lim)
+    Wnd = extract_windows(img[None], basec[None].contiguous(), G)[:, :, 0]
+    Wn = Wnd.permute(2, 0, 1)                                  # [N, G, G]
+    # dot[n, dy, dx] = <templates[n], window patch at (dy, dx)>
+    dot = F.conv2d(Wn[None], templates.reshape(N, 1, S, S), groups=N)[0]
+    box = torch.ones((1, 1, S, S), dtype=Wn.dtype, device=Wn.device)
+    sums = F.conv2d(torch.stack([Wn, Wn * Wn]).reshape(2 * N, 1, G, G), box)
+    sum_p, sum_p2 = sums.reshape(2, N, G - S + 1, G - S + 1)
+    var = torch.clamp(sum_p2 - sum_p * sum_p / (S * S), min=1e-6)
+    flat = (dot / torch.sqrt(var)).reshape(N, -1)              # [N, K*K]
+    K2 = 2 * sr + 1
+    best = torch.argmax(flat, dim=1)
+    best_score = torch.gather(flat, 1, best[:, None])[:, 0]
+    off = torch.stack([best % K2, torch.div(best, K2, rounding_mode="floor")],
+                      -1)
+    best_px = basec.to(torch.float32) + off.to(torch.float32) + patch_radius
+    ok = torch.all(base == basec, dim=1)
+    return best_px, torch.where(ok, best_score,
+                                torch.full_like(best_score, NCC_INVALID))
 

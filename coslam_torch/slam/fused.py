@@ -41,16 +41,19 @@ class FrameStats(NamedTuple):
 
 
 def frame_step(state: SlamState, pyr_prev, imgs_cur: torch.Tensor,
-               K: torch.Tensor, kc: torch.Tensor, cfg: SlamConfig):
+               K: torch.Tensor, kc: torch.Tensor, cfg: SlamConfig,
+               large_err: bool = False):
     """One tracked frame. Returns (state', pyr_cur, FrameStats); the
-    previous frame's pyramid is carried between calls."""
+    previous frame's pyramid is carried between calls. ``large_err``: the
+    settle window after a merge or loop closure, where the realigned poses
+    meet widened pose gates (the reference's largeErr frames)."""
     imgs_cur = imgs_cur.to(torch.float32)
     img_hw = (imgs_cur.shape[1], imgs_cur.shape[2])
     pyr_cur = build_pyramid(imgs_cur, cfg.klt.n_levels)
     tracks = steps.advance_tracks(pyr_prev, pyr_cur, state.tracks, K, kc,
                                   state.frame + 1, cfg)
     state = state._replace(tracks=tracks, frame=state.frame + 1)
-    out = steps.pose_update(state, K, kc, img_hw, cfg)
+    out = steps.pose_update(state, K, kc, img_hw, cfg, large_err=large_err)
     state = state._replace(R=out.R, t=out.t, tracks=out.tracks,
                            mappts=out.mappts)
     state = steps.push_pose_history(state)

@@ -86,3 +86,12 @@ def group_camera_tuples(group_id: np.ndarray) -> list[tuple[int, ...]]:
             out.append(cams)
     return out
 
+
+def group_adjacent_pairs(group_id: np.ndarray) -> list[tuple[int, int]]:
+    """Adjacent camera pairs within each group, in group order (the rigid
+    chain edges of the merge's camera pose graph)."""
+    return [(cams[k], cams[k + 1])
+            for cams in (tuple(int(c) for c in np.nonzero(group_id == g)[0])
+                         for g in np.unique(group_id))
+            for k in range(len(cams) - 1)]
+

@@ -195,26 +195,36 @@ def intercam_map_group(state: SlamState, pyr_cur, K: torch.Tensor,
 
 
 def register_map_points(state: SlamState, pyr_cur, K: torch.Tensor,
-                        cfg: SlamConfig, max_age: int):
-    """Re-acquire unseen alive static points, last observed at most
-    ``max_age`` frames ago, per camera by projection + NCC: an unmapped
-    feature binds to a point of its own camera group whose projection lies
-    within 3 sigma and whose stored appearance matches (mutual best,
-    NCC >= ncc_min_score). Returns (state', n_new).
+                        cfg: SlamConfig, max_age: int | None = None,
+                        gate_scale: float = 1.0, min_age: int | None = None,
+                        min_score: float | None = None,
+                        steal_young: bool = False):
+    """Re-acquire unseen alive static points per camera by projection +
+    NCC (activeMapPointsRegister): an unmapped feature binds to a point of
+    its own camera group whose projection lies within 3 sigma x
+    ``gate_scale`` and whose stored appearance matches (mutual best, NCC
+    >= ``min_score``, default ncc_min_score). Candidates were last observed
+    at most ``max_age`` and, with ``min_age`` (loop closure), at least
+    ``min_age`` frames ago. With ``steal_young`` too, features bound to
+    points younger than ``min_age`` are eligible as well: a revisited
+    structure is usually re-mapped as fresh duplicates before the closure
+    runs, and the dormant original wins those features back. Returns
+    (state', n_new).
 
     The score matrix is a float32 product on every device: the JAX package
     asks for ``Precision.DEFAULT`` there, which is bf16 on a TPU and f32 on
-    its CPU. The reference's ``gate_scale``/``min_age``/``steal_young``/
-    ``min_score`` options serve group merge and loop closure (ROADMAP A14)
-    and come with them."""
+    its CPU."""
     tracks, mappts = state.tracks, state.mappts
     C, N = tracks.valid.shape
     P = mappts.xyz.shape[0]
     p = cfg.p
     dev = tracks.pos.device
-    gate = (p.pixel_err_var ** 0.5) * 3.0
-    alive = (mappts.status == ST_ALIVE) & (mappts.ptype == PT_STATIC) & \
-        (state.frame - mappts.last_obs <= max_age)
+    gate = (p.pixel_err_var ** 0.5) * 3.0 * gate_scale
+    alive = (mappts.status == ST_ALIVE) & (mappts.ptype == PT_STATIC)
+    if max_age is not None:
+        alive = alive & (state.frame - mappts.last_obs <= max_age)
+    if min_age is not None:
+        alive = alive & (state.frame - mappts.last_obs >= min_age)
     # registration stays within the camera group
     owner_grp = state.group_id[torch.clamp(mappts.owner, 0, C - 1).long()]
     blocks_all, ok_all = extract_ncc_blocks_batched(
@@ -230,12 +240,18 @@ def register_map_points(state: SlamState, pyr_cur, K: torch.Tensor,
         cand_p = alive & ~seen & mappts.ncc_valid[:, c] & \
             (owner_grp == state.group_id[c])
         pr = project_points(K[c], state.R[c], state.t[c], mappts.xyz)
-        free_f = tracks.valid[c] & (mpt_c < 0) & ok_all[c]
+        free_f = tracks.valid[c] & ok_all[c] & (mpt_c < 0)
+        if steal_young and min_age is not None:
+            young = (mpt_c >= 0) & (mappts.first_frame[
+                torch.clamp(mpt_c, min=0).long()] > state.frame - min_age)
+            free_f = tracks.valid[c] & ok_all[c] & ((mpt_c < 0) | young)
         s = mappts.ncc[:, c] @ blocks_all[c].T                 # [P, N]
         dist = torch.linalg.norm(pr[:, None, :] - tracks.pos[c][None], dim=-1)
         bad = ~(cand_p[:, None] & free_f[None, :]) | (dist > gate)
         s = torch.where(bad, torch.full_like(s, NCC_INVALID), s)
-        mres = greedy_mutual_match(s, min_score=p.ncc_min_score, rounds=4)
+        mres = greedy_mutual_match(
+            s, min_score=p.ncc_min_score if min_score is None else min_score,
+            rounds=4)
         got = mres.a_to_b >= 0                                 # [P]
         mpt_rows[c] = set_drop(mpt_c, torch.where(got, mres.a_to_b, N), ar_p)
         n_new = n_new + torch.sum(got)

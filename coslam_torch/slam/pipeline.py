@@ -1,21 +1,23 @@
 """Host-side engine (the port of ``coslam_tpu/slam/pipeline.py``: one
-camera or several, without group merges and loop closure).
+camera or several).
 
 The per-frame hot path is ``fused.frame_step`` over statically shaped
 state on the device; the host reads one packed statistics vector per
 tracked frame and makes the cadence decisions: the joint multi-camera
 pose when a camera's static support collapses, the dynamic-point log,
-camera grouping (with split hysteresis), inter-camera mapping and
-registration, keyframes, windowed BA (synchronous), periodic duplicate
-unification. Frame 0 seeds corners; several cameras bootstrap from the
-wide-baseline map init at frame 0 (retried every frame until it
-succeeds), one camera from the two-frame E-matrix once ``init_frames``
-frames are tracked. Trajectories are chain-corrected to the final
-keyframe poses at export.
+camera grouping (with split hysteresis), group merges and loop closures
+on the grouping tick (with their settle windows and failed-attempt
+backoffs), inter-camera mapping and registration, keyframes, windowed BA
+(synchronous), periodic duplicate unification. Frame 0 seeds corners;
+several cameras bootstrap from the wide-baseline map init at frame 0
+(retried every frame until it succeeds), one camera from the two-frame
+E-matrix once ``init_frames`` frames are tracked. Trajectories are
+chain-corrected to the final keyframe poses at export.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): group merges and loop closure (A14), the chunked, overlapped,
-async-BA and non-fused engine modes (A15), and multi-device meshes (A18).
+item): the chunked, overlapped, async-BA and non-fused engine modes
+(A15), and multi-device meshes (A18). BA runs synchronously, so a merge
+has no in-flight BA to cancel.
 """
 
 from __future__ import annotations
@@ -40,7 +42,10 @@ from coslam_torch.slam.initmap import init_map_multicam
 from coslam_torch.slam.intercam import (intercam_map_group,
                                         joint_pose_update,
                                         register_map_points)
-from coslam_torch.slam.merge import fuse_close_points
+from coslam_torch.slam.loop import close_loop, find_loop_candidates
+from coslam_torch.slam.merge import (MergeCandidate, fuse_close_points,
+                                     fuse_duplicate_points, merge_candidates,
+                                     merge_groups)
 from coslam_torch.slam.state import (PT_STATIC, ST_ALIVE, SlamState,
                                      init_state)
 from coslam_torch.solvers.ba import bundle_adjust_table
@@ -48,11 +53,14 @@ from coslam_torch.solvers.pose_graph import (chain_graph,
                                              solve_chain_segments,
                                              solve_rotations,
                                              solve_translations)
-from coslam_torch.util import nanmedian, resolve_device, set_drop
+from coslam_torch.util import nanmedian, resolve_device, set_drop, to_host
 
 # cadence (frames) of the grouping tick, on which the merge and loop
 # checks run
 GROUPING_INTERVAL = 5
+# frames after a merge or loop closure: no re-grouping and no closure
+# attempt, and widened pose gates (the reference's largeErr frames)
+SETTLE_FRAMES = 12
 
 
 def _pack_rt(R, t):
@@ -111,6 +119,16 @@ class CoSlamEngine:
         self._last_intercam = -10 ** 9
         self._last_register = -10 ** 9
         self._last_fuse = 0
+        self.merge_log: list[dict] = []     # committed merges (and no-ops)
+        self.loop_log: list[dict] = []      # committed loop closures
+        self._last_merge = 0
+        self._last_merge_try = -10 ** 9
+        self._merge_backoff = 0             # grows on failed bridges
+        self._merge_was_possible = False
+        self._last_closure = 0
+        self._last_loop_attempt = -10 ** 9
+        self._loop_backoff = GROUPING_INTERVAL
+        self._large_err_until = 0           # end of the widened-gate window
         self._kf_pose_host = None   # (R, t) of the last keyframe, numpy
         self._pose_host_cache = None
         self._pose_prefetch = None   # packed poses fetched right after BA
@@ -127,7 +145,8 @@ class CoSlamEngine:
         imgs = torch.as_tensor(images).to(self.device).to(torch.float32)
         if self.bootstrapped and self.frame > 0:
             self.state, pyr, fs = frame_step(
-                self.state, self.pyr_prev, imgs, self.K, self.kc, cfg)
+                self.state, self.pyr_prev, imgs, self.K, self.kc, cfg,
+                large_err=self.frame < self._large_err_until)
             stats = {"frame": self.frame}
             stats.update(self._host_cadence(pyr, pack_stats(fs)))
         else:
@@ -345,17 +364,15 @@ class CoSlamEngine:
                 sel = ids >= 0
                 if sel.any():
                     self.dyn_log.append((frame, ids[sel], xyz[sel]))
-            if grouping_due:
+            # no re-grouping while shared observations re-form after a merge
+            if grouping_due and self._settled():
                 self._update_grouping()
-            # group merge (mergeCamGroups) on the grouping tick; no merge
-            # has run, so merge_min_interval counts from frame 0
+            # group merge (mergeCamGroups) on the grouping tick, so it
+            # never acts on stale group ids
             if (len(np.unique(self.group_id)) > 1 and grouping_due
-                    and self.frame >= p.merge_min_interval
-                    and self._merge_possible()):
-                raise NotImplementedError(
-                    f"camera-group merging is not ported yet (reached at "
-                    f"frame {self.frame}, groups {self.group_id.tolist()}): "
-                    f"ROADMAP.md item A14")
+                    and self.frame - self._last_merge
+                    >= p.merge_min_interval):
+                self._merge_tick(pyr)
         if grouping_due:
             self._try_loop_closure(pyr)
         n_inter = self._intercam_cadence(pyr, n_mapped, n_inl)
@@ -448,11 +465,34 @@ class CoSlamEngine:
                     return True
         return False
 
+    def _settled(self) -> bool:
+        """Past the settle window of the last merge."""
+        return not self.merge_log or \
+            self.frame - self.merge_log[-1]["frame"] > SETTLE_FRAMES
+
+    def _merge_tick(self, pyr):
+        """The merge check of a grouping tick: the device prefilter on every
+        tick (the moment overlap re-forms, the failed-attempt backoff
+        resets), then a bridge attempt unless a recent failure backs it
+        off by one grouping tick."""
+        possible = self._merge_possible()
+        if possible and not self._merge_was_possible:
+            self._merge_backoff = 0
+        self._merge_was_possible = possible
+        if possible and self.frame - self._last_merge_try \
+                >= self._merge_backoff:
+            n_groups = len(np.unique(self.group_id))
+            self._last_merge_try = self.frame
+            self._try_merge(pyr)
+            unified = len(np.unique(self.group_id)) < n_groups
+            self._merge_backoff = 0 if unified else 2 * GROUPING_INTERVAL
+
     def _update_grouping(self):
         """Recompute camera groups with SPLIT hysteresis: a proposal that
         separates co-grouped cameras must persist for two consecutive
         grouping rounds before it is committed (shared observations flap
-        around the threshold after occlusions). Joins apply at once."""
+        around the threshold after occlusions). Joins apply at once; a
+        committed split restarts the merge attempts without backoff."""
         shared, area, _, _, _ = self._host_scan()
         gid = camera_grouping(self.state, self.cfg, shared=shared, area=area)
         cur = self.group_id
@@ -464,21 +504,151 @@ class CoSlamEngine:
             if self._split_pending != key:
                 self._split_pending = key
                 return
+            self._merge_backoff = 0
+            self._last_merge_try = -10 ** 9
         self._split_pending = None
+        self._set_groups(gid)
+
+    def _set_groups(self, gid: np.ndarray):
         self.group_id = gid
         self.state = self.state._replace(
             group_id=torch.as_tensor(gid, device=self.device))
 
-    def _try_loop_closure(self, pyr):
-        """Intra-group loop closure: reached on a grouping tick once
-        ``loop_min_interval`` frames have passed (since frame 0: no closure
-        has run)."""
-        p = self.cfg.p
-        if self.frame < p.loop_min_interval:
+    def _poses_changed(self):
+        """Drop the host copies of the live and keyframe poses."""
+        self._pose_host_cache = None
+        self._kf_pose_host = None
+        self._pose_prefetch = None
+        self._kf_prefetch = None
+
+    def _keyframe_ba(self, window: int):
+        """A keyframe at the current frame and a BA over ``window``
+        keyframes (the merge- and loop-time joint BA)."""
+        self.state = self.state._replace(kfs=steps.add_keyframe(self.state))
+        self.kf_frames.append(self.frame)
+        self._kf_pose_host = None
+        self._run_ba(window=window)
+
+    def _try_merge(self, pyr):
+        """mergeCamGroups: bridge the best candidate pair; on a realigning
+        merge, iterate the bridge, fuse duplicates, unify the groups,
+        re-register with a widened gate and run the joint wide BA."""
+        cfg = self.cfg
+        p = cfg.p
+        cands = merge_candidates(self.state, cfg, self.K.cpu().numpy(),
+                                 self.group_id)
+        if not cands:
             return
-        raise NotImplementedError(
-            f"loop closure is not ported yet (reached at frame {self.frame}, "
-            f"loop_min_interval={p.loop_min_interval}): ROADMAP.md item A14")
+        cand = cands[0]
+        # anchor the group with the more established map: age mass (sum of
+        # point ages); an exploring camera mints many fresh points
+        mp = self.state.mappts
+        status, ptype, owner, first = to_host(mp.status, mp.ptype, mp.owner,
+                                              mp.first_frame)
+        alive = (status == ST_ALIVE) & (ptype == PT_STATIC)
+        grp_owner = self.group_id[np.clip(owner, 0, cfg.num_cameras - 1)]
+        mass = alive * np.maximum(self.frame - first, 0)
+        n_a = float(mass[grp_owner == self.group_id[cand.cam_a]].sum())
+        n_b = float(mass[grp_owner == self.group_id[cand.cam_b]].sum())
+        if n_b > n_a:
+            cand = MergeCandidate(cam_a=cand.cam_b, cam_b=cand.cam_a,
+                                  overlap=cand.overlap)
+        # the last frame the two groups were one (0 when never: the
+        # reference's fallback)
+        f_sep = next((f for f in range(len(self.group_hist) - 1, -1, -1)
+                      if self.group_hist[f][cand.cam_a]
+                      == self.group_hist[f][cand.cam_b]), 0)
+        res = merge_groups(self.state, cfg, pyr, self.K, self.kc,
+                           self.group_id, cand, f_sep=f_sep)
+        if not res.ok:
+            return
+        # only committed merges start the merge_min_interval clock
+        self._last_merge = self.frame
+        ga = self.group_id[cand.cam_a]
+        gb = self.group_id[cand.cam_b]
+        unified = np.where(self.group_id == gb, ga, self.group_id)
+        if res.noop:
+            # identity explained the bridge: unify and re-register, no
+            # realignment; the wide BA only after a separation long enough
+            # to have drifted
+            self._set_groups(unified)
+            self.state, _ = register_map_points(
+                self.state, pyr, self.K, cfg, max_age=p.num_act_frames,
+                gate_scale=3.0)
+            self.merge_log.append({
+                "frame": self.frame, "cam_a": cand.cam_a,
+                "cam_b": cand.cam_b, "scale": res.scale,
+                "n_matches": res.n_matches, "scale_move": 1.0, "noop": True})
+            if self.frame - f_sep > 2 * p.keyframe_min_interval:
+                self._keyframe_ba(p.merge_ba_window)
+            return
+        self._large_err_until = self.frame + SETTLE_FRAMES
+        self.state = res.state
+        # Gauss-Newton on the bridge: a thin match set leaves a bas-relief
+        # ambiguity; rerun from the realigned pose until the bridge's own
+        # no-op test says the pose explains it
+        for _ in range(2):
+            res_i = merge_groups(self.state, cfg, pyr, self.K, self.kc,
+                                 self.group_id, cand, f_sep=f_sep)
+            if not res_i.ok or res_i.noop:
+                break
+            res = res_i._replace(scale=res.scale)
+            self.state = res.state
+        self.state = fuse_duplicate_points(self.state, cfg, self.group_id,
+                                           cand)
+        self.merge_log.append({
+            "frame": self.frame, "cam_a": cand.cam_a, "cam_b": cand.cam_b,
+            "scale": res.scale, "n_matches": res.n_matches,
+            "scale_move": res.scale_move})
+        self._set_groups(unified)
+        # re-form the cross-group observations now, with a widened gate
+        self.state, _ = register_map_points(
+            self.state, pyr, self.K, cfg, max_age=p.num_act_frames,
+            gate_scale=3.0)
+        self._poses_changed()
+        # joint BA over both groups' separation-era keyframes
+        self._keyframe_ba(p.merge_ba_window)
+
+    def _try_loop_closure(self, pyr):
+        """Intra-group loop closure on a grouping tick: when a camera's
+        view re-covers its own dormant map, re-acquire it, solve the
+        drift-free pose and distribute the correction over the drift
+        window (slam/loop.py), then BA a wide window at a fresh keyframe.
+        Spaced by ``loop_min_interval`` after a closure, out of a merge's
+        settle window, with a capped backoff after failed attempts."""
+        p = self.cfg.p
+        if self.frame - self._last_closure < p.loop_min_interval:
+            return
+        if self.frame - self._last_loop_attempt < self._loop_backoff:
+            return
+        if not self._settled():
+            return
+        # device prefilter: enough dormant points in some view
+        dorm_counts = self._host_scan()[4]
+        if dorm_counts.max(initial=0) < p.loop_overlap_min:
+            self._loop_backoff = GROUPING_INTERVAL
+            return
+        self._last_loop_attempt = self.frame
+        cands = find_loop_candidates(self.state, self.cfg,
+                                     self.K.cpu().numpy())
+        if not cands:
+            return
+        res = close_loop(self.state, self.cfg, pyr, self.K, self.kc,
+                         self.group_id, cands[0][0])
+        if not res.ok:
+            self._loop_backoff = min(
+                max(2 * GROUPING_INTERVAL, self._loop_backoff * 2),
+                4 * GROUPING_INTERVAL)
+            return
+        self._loop_backoff = GROUPING_INTERVAL
+        self.state = res.state
+        self._poses_changed()
+        self._last_closure = self.frame
+        self._large_err_until = self.frame + SETTLE_FRAMES
+        self.loop_log.append({"frame": self.frame, "cam": res.cam,
+                              "n_inliers": res.n_inliers,
+                              "f_anchor": res.f_anchor, "scale": res.scale})
+        self._keyframe_ba(p.merge_ba_window)
 
     def _keyframe_ready(self, out) -> bool:
         p = self.cfg.p
@@ -509,10 +679,12 @@ class CoSlamEngine:
         return bool(decrease or np.any(trans > p.keyframe_trans_ratio)
                     or np.any(ang > p.keyframe_angle_deg))
 
-    def _run_ba(self):
-        """Synchronous windowed BA over the dense table, then write-back."""
+    def _run_ba(self, window: Optional[int] = None):
+        """Synchronous windowed BA over the dense table, then write-back;
+        ``window`` widens the keyframe window (merge- and loop-time BA)."""
         cfg = self.cfg
-        prob, ring, kf_ok = steps.build_ba_table(self.state, self.K, cfg)
+        prob, ring, kf_ok = steps.build_ba_table(self.state, self.K, cfg,
+                                                 window=window)
         res = bundle_adjust_table(prob, max_err=cfg.p.max_err,
                                   max_iter=cfg.p.ba_max_iter,
                                   inner_iter=cfg.p.ba_inner_iter)
@@ -554,12 +726,16 @@ class CoSlamEngine:
             self.traj[c].append((R[c].copy(), t[c].copy()))
 
     # ------------------------------------------------------------------
-    def trajectory(self, c: int = 0, correct: bool = True):
+    def trajectory(self, c: int = 0, correct: bool = True,
+                   chain_scales: bool = False):
         """([F,3,3], [F,3]) numpy poses of camera c. With correct=True,
         non-key poses are re-aligned to the final (BA-corrected) keyframe
-        poses via the chain pose graph (updateNonKeyCameraPoses). The
-        reference's per-segment scales (``chain_scales``) follow merges
-        and loop closures, which are not ported yet (ROADMAP.md A14)."""
+        poses via the chain pose graph (updateNonKeyCameraPoses). With
+        ``chain_scales``, each inter-keyframe segment carries one unknown
+        translation scale (uncertainScale): after a merge or loop closure
+        rescaled the keyframe anchors, the drift window's raw relative
+        translations are still at the old scale, and the chain stretches
+        to its anchors instead of distorting."""
         Rs = np.stack([p[0] for p in self.traj[c]])
         ts = np.stack([p[1] for p in self.traj[c]])
         if not correct or not self.kf_frames:
@@ -591,7 +767,8 @@ class CoSlamEngine:
         if F > 512:
             # long runs: consecutive anchors decouple the chain
             return solve_chain_segments(R_rel, t_rel, fixed, fixed_R,
-                                        fixed_t, device=self.device)
+                                        fixed_t, chain_scales=chain_scales,
+                                        device=self.device)
 
         def T(a):
             return torch.as_tensor(a, device=self.device)
@@ -599,8 +776,19 @@ class CoSlamEngine:
         pg = chain_graph(T(R_rel), T(t_rel), T(fixed), T(fixed_R),
                          T(fixed_t), torch.ones(F, dtype=torch.bool,
                                                 device=self.device))
+        num_scales = 1
+        anchors = np.nonzero(fixed)[0]
+        if chain_scales and len(anchors) >= 2:
+            # edge k (k -> k+1) belongs to the segment between its
+            # surrounding anchors; edges outside [first, last) anchor stay
+            # rigid (their scale would be unobservable)
+            e = np.arange(F - 1)
+            seg = np.searchsorted(anchors, e, side="right") - 1
+            sg = np.where((e >= anchors[0]) & (e < anchors[-1]), seg, -1)
+            num_scales = len(anchors) - 1
+            pg = pg._replace(scale_group=T(sg.astype(np.int32)))
         R_sol = solve_rotations(pg)
-        t_sol, _ = solve_translations(pg, R_sol)
+        t_sol, _ = solve_translations(pg, R_sol, num_scales=num_scales)
         return R_sol.cpu().numpy(), t_sol.cpu().numpy()
 
     def map_points(self):

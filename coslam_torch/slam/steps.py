@@ -559,17 +559,21 @@ def add_keyframe(state: SlamState) -> KeyframeStore:
         n=kfs.n + 1)
 
 
-def build_ba_table(state: SlamState, K: torch.Tensor, cfg: SlamConfig):
+def build_ba_table(state: SlamState, K: torch.Tensor, cfg: SlamConfig,
+                   window: int | None = None):
     """Dense [S, P] window table for ``bundle_adjust_table``
     (S = window x cameras): recycled-slot rejection via generations, a
     >= 2-observation requirement, pre-window points as anchors, and a
     2-keyframe gauge (all poses fixed until the window fills). Each
-    keyframe's dynamic snapshot adds independent landmark columns. Returns
+    keyframe's dynamic snapshot adds independent landmark columns.
+    ``window`` overrides the keyframe count and frees the mid-window poses
+    even while the window is only partly filled: the merge- and loop-time
+    joint BA, whose point is to absorb the drift of a separation. Returns
     (BATableProblem, ring [W], kf_ok [W])."""
     kfs, mappts = state.kfs, state.mappts
     KF, C, N = kfs.obs_mpt.shape
     P = mappts.xyz.shape[0]
-    W = min(cfg.cap.ba_window, KF)
+    W = min(window or cfg.cap.ba_window, KF)
     S = W * C
     dev = K.device
     arW = torch.arange(W, device=dev)
@@ -600,7 +604,9 @@ def build_ba_table(state: SlamState, K: torch.Tensor, cfg: SlamConfig):
     oldest_frame = kfs.frame[ring[torch.argmax(kf_ok.to(torch.int32))]]
     point_fixed = (cnt < 2) | (mappts.first_frame < oldest_frame)
     valid = tbl_ok & (cnt >= 2)[None]
-    kf_fixed = (arW < 2) | ~kf_ok | (torch.sum(kf_ok) < W)
+    kf_fixed = (arW < 2) | ~kf_ok
+    if window is None:
+        kf_fixed = kf_fixed | (torch.sum(kf_ok) < W)
     cam_fixed = kf_fixed[:, None].expand(W, C).reshape(S)
     # dynamic-snapshot columns: [P static | W*D dyn (padded to 128)]
     D = kfs.dyn_xyz.shape[1]

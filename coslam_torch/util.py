@@ -1,5 +1,5 @@
 """Small tensor helpers shared across the package: device selection, the
-NaN-aware median and JAX-style dropping scatters."""
+NaN-aware median, batched host copies and JAX-style dropping scatters."""
 
 from __future__ import annotations
 
@@ -36,6 +36,18 @@ def nanmedian(x: torch.Tensor, dim: int) -> torch.Tensor:
     hi = torch.maximum(torch.minimum(hi, top), torch.zeros_like(hi)).long()
     out = torch.gather(s, dim, lo) * lw + torch.gather(s, dim, hi) * hw
     return out.squeeze(dim)
+
+
+def to_host(*tensors):
+    """Several tensors as numpy arrays after one wait: the device-to-host
+    copies are queued without blocking and the device is synchronized once
+    (a host decision that reads many tables pays one sync, not one per
+    table). A CPU tensor is not copied: its array shares its memory, so
+    callers only read them."""
+    out = [a.to("cpu", non_blocking=True) for a in tensors]
+    if any(a.is_cuda for a in tensors):
+        torch.cuda.synchronize()
+    return [a.numpy() for a in out]
 
 
 def set_drop(dst: torch.Tensor, idx, val, accumulate: bool = False):

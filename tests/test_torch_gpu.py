@@ -104,7 +104,7 @@ def test_klt_track_kernel_matches_plain(cuda, shape, n, n_levels, with_gain):
                                rtol=1e-3, atol=1e-2)
 
 
-@pytest.mark.parametrize("G", [12, 14, 23, 24])
+@pytest.mark.parametrize("G", [12, 14, 23, 24, 43])
 def test_extract_windows_kernel_bit_exact(cuda, G):
     from coslam_torch.ops.patches import (extract_windows,
                                           extract_windows_plain)
@@ -225,6 +225,34 @@ def test_ncc_blocks_on_the_card(cuda):
     for g, w in ((got, want), (one, (want[0][1], want[1][1]))):
         np.testing.assert_array_equal(tp.n(g[1]), tp.n(w[1]))
         np.testing.assert_allclose(tp.n(g[0]), tp.n(w[0]), atol=1e-5)
+
+
+def test_ncc_search_on_the_card(cuda):
+    """Loop closure's template search at its shape (radius 16: G = 43,
+    N = 256, one 480x640 image) on the card against the CPU: one window
+    launch; the windows are exact, the convolutions sum in another order,
+    so the best pixel agrees on >= 99% of the centres and the scores to
+    1e-4."""
+    from coslam_torch.ops.ncc import extract_ncc_blocks, ncc_search
+    from coslam_torch.ops.patches import extract_windows
+    rng = np.random.default_rng(7)
+    img = tp.t(tp.smooth_texture(rng, 480, 640, passes=1)[0])
+    true = np.round(rng.uniform(30, [610, 450], (256, 2))).astype(np.float32)
+    centers = true + rng.integers(-12, 13, (256, 2)).astype(np.float32)
+    centers[:3] = [[5, 200], [300, 470], [630, 10]]     # windows clamp
+    tmpl, _ = extract_ncc_blocks(img, tp.t(true), 5)
+    n0 = extract_windows.launches
+    got = ncc_search(img.to(cuda), tp.t(centers).to(cuda), tmpl.to(cuda),
+                     search_radius=16, patch_radius=5)
+    assert extract_windows.launches == n0 + 1
+    want = ncc_search(img, tp.t(centers), tmpl, search_radius=16,
+                      patch_radius=5)
+    gpx, gsc, wpx, wsc = (tp.n(a) for a in (*got, *want))
+    same = (gpx == wpx).all(1)
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(gsc[same], wsc[same], atol=1e-4)
+    assert (wsc[:3] == -2.0).all() and (gsc[:3] == -2.0).all()
+    assert (np.abs(wpx[3:] - true[3:]).max(1) == 0).mean() > 0.9
 
 
 def test_two_camera_engine_on_the_card_matches_the_cpu(cuda):

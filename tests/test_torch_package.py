@@ -232,9 +232,10 @@ def test_engine_needs_a_card_or_an_explicit_cpu(monkeypatch):
 
 
 def test_parts_outside_the_slice_raise():
-    """The engine modes (A15) and meshes (A18) raise at construction; with
-    several cameras, the group-merge call site raises (A14): two groups on
-    a grouping tick past merge_min_interval whose maps could overlap."""
+    """The engine modes (A15) and meshes (A18) raise at construction. The
+    group-merge call site (ported, A14) tries a merge on a grouping tick
+    past merge_min_interval when two groups' maps could overlap, and then
+    backs off one tick while the bridge keeps failing."""
     from types import SimpleNamespace
     from coslam_torch.config import small_test_config
     from coslam_torch.slam.pipeline import GROUPING_INTERVAL, CoSlamEngine
@@ -258,25 +259,38 @@ def test_parts_outside_the_slice_raise():
                           med_err=np.zeros(2), med_depth=np.ones(2))
     kw = dict(n_mapped=np.array([200, 200]), n_new=0, dyn=None, n_static=0,
               n_dynamic=0)
+    tries = []
+    eng._try_merge = lambda pyr: tries.append(eng.frame)   # bridge fails
+    eng._try_loop_closure = lambda pyr: None
     eng.frame = cfg2.p.merge_min_interval - 1     # too early: no merge
     eng._intercam_cadence = lambda *a: 0
     eng._keyframe_ready = lambda out: False
     eng._shared_cadence(None, out, frame=eng.frame, **kw)
-    eng.frame = cfg2.p.merge_min_interval + GROUPING_INTERVAL
-    with pytest.raises(NotImplementedError, match="A14"):
+    assert tries == []
+    f0 = cfg2.p.merge_min_interval + GROUPING_INTERVAL
+    for k in range(4):
+        eng.frame = f0 + k * GROUPING_INTERVAL
         eng._shared_cadence(None, out, frame=eng.frame, **kw)
+    assert tries == [f0, f0 + 2 * GROUPING_INTERVAL]
 
 
 def test_loop_closure_point_raises():
-    """The reference's loop-closure scan is reached only once
-    loop_min_interval frames have passed; the port raises there."""
+    """The loop-closure check (ported, A14) is reached only once
+    loop_min_interval frames have passed; with no dormant point in view
+    it returns at the device prefilter, as the reference does, and never
+    raises."""
     from coslam_torch.config import small_test_config
-    from coslam_torch.slam.pipeline import CoSlamEngine
+    from coslam_torch.slam import pipeline as pl
     cfg = small_test_config(1, 96, 128)
     K = np.array([[[100.0, 0, 64], [0, 100.0, 48], [0, 0, 1]]], np.float32)
-    eng = CoSlamEngine(cfg, K, np.zeros((1, 5), np.float32), device="cpu")
+    eng = pl.CoSlamEngine(cfg, K, np.zeros((1, 5), np.float32), device="cpu")
+    scans = []
+    real_scan = eng._host_scan
+    eng._host_scan = lambda: scans.append(eng.frame) or real_scan()
     eng.frame = cfg.p.loop_min_interval - 1
     eng._try_loop_closure(None)                      # not due yet
+    assert scans == []
     eng.frame = cfg.p.loop_min_interval
-    with pytest.raises(NotImplementedError, match="A14"):
-        eng._try_loop_closure(None)
+    eng._try_loop_closure(None)                      # prefilter: nothing
+    assert scans == [eng.frame] and eng.loop_log == []
+    assert eng._last_loop_attempt < 0
