@@ -1,13 +1,15 @@
 """Chip smoke test of coslam_torch on one CUDA card.
 
-Builds the CUDA kernels from coslam_torch/csrc (build_pyramid, klt_track,
-extract_windows), holds each against its plain PyTorch twin at the
-paths' shapes (one camera, three cameras, and the loop closure's G = 43
-template search) and times both (on frames rendered on the card, held
-against the same frames rendered on the CPU), then drives the engine end
-to end on four paths at the production configuration (480x640, 4 KLT
-levels, 1024 features per camera, 8192 map points, 64 keyframes, BA
-window 5) in the synthetic room:
+Builds the five CUDA kernels from coslam_torch/csrc (build_pyramid,
+klt_track, extract_windows, ncc_blocks, ncc_search), holds each against
+its plain PyTorch twin at the paths' shapes (one camera, three cameras,
+and the loop closure's G = 43 template search) and times both (on frames
+rendered on the card, held against the same frames rendered on the CPU;
+the two NCC kernels also against their plain versions, the previous NCC
+path, in turns, with the device activities of one call of each), then
+drives the engine end to end on four paths at the production
+configuration (480x640, 4 KLT levels, 1024 features per camera, 8192 map
+points, 64 keyframes, BA window 5) in the synthetic room:
 - monocular, 100 frames: bootstrap, keyframes, BA, finiteness, the
   Sim(3)-aligned ATE;
 - threecam_dyn, 100 frames (three cameras on a rig, a moving textured
@@ -17,8 +19,11 @@ window 5) in the synthetic room:
   groups split, the merge bridge rejoins them, every camera's ATE;
 - mono_loop, 400 frames (one camera maps a wall, turns away and comes
   back): a loop closure anchored on the dormant map, the ATE;
-and checks that every kernel ran on each path (launch counts set to 0
-just before a path and read just after it).
+and checks that the path's kernels ran (launch counts set to 0 just
+before a path and read just after it): build_pyramid, klt_track and
+ncc_blocks on every path, ncc_search once per searching closure attempt
+on mono_loop, and extract_windows on none (it serves the plain versions
+only).
 
 Short runs at the CPU tests' size hold the engine on the card against the
 same engine on the CPU (the plain PyTorch versions, which
@@ -30,7 +35,8 @@ torch.profiler traces 5 tracked frames of a fresh run of mono and
 threecam_dyn, and of splitmerge around its first merge (replayed from a
 copy of the engine taken two frames before it): device-busy time,
 the device's idle share and kernel launches per frame, in all and inside
-the ``build_pyramid`` and ``klt_track`` ranges; ``--profile-table PATH``
+the ``build_pyramid``, ``klt_track`` and ``ncc_blocks`` ranges;
+``--profile-table PATH``
 also writes the operator tables to PATH (the others beside it, with a
 ``.threecam`` and ``.splitmerge`` suffix).
 
@@ -126,6 +132,45 @@ def eager_time_ms(fn, reps: int = 5, trials: int = 5) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e) / reps)
     return float(np.median(times))
+
+
+def activities_per_call(fn, calls: int = 10):
+    """Device activities (kernels, copies, sets) one call of ``fn`` starts,
+    counted under torch.profiler over ``calls`` calls, and their names.
+    The device-side marks of the wrappers' record_function ranges are not
+    activities and are left out."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    acts = [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name not in kernel_counters()]
+    return len(acts) / calls, sorted({a[:48] for a in acts})
+
+
+def activity_counts(kernel, plain) -> dict:
+    """Device activities per call of a kernel's wrapper and of its plain
+    version, with the names of the wrapper's."""
+    n, names = activities_per_call(kernel)
+    return dict(activities=n, activity_names=names,
+                plain_activities=activities_per_call(plain)[0])
+
+
+def in_turns(kernel, plain) -> dict:
+    """Eager device time of one call (CUDA events around 20 calls, median
+    of 5) of the kernel's wrapper and of its plain version, in turns:
+    plain, kernel, kernel, plain. (The plain NCC versions build a small
+    host tensor each call, a synchronous copy that no CUDA graph can
+    capture, so this pair is timed eagerly; it includes the gaps the
+    host's launch path leaves between kernels.)"""
+    t = [eager_time_ms(f, reps=20) for f in (plain, kernel, kernel, plain)]
+    return dict(eager_ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
+                turns_ms=t)
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -394,6 +439,116 @@ def windows_record(C: int, h: int, w: int, G: int, gen, n: int = N_FEAT):
                                                                idx)))
 
 
+def ncc_blocks_record(imgs, gen, radius: int = 5, n: int = N_FEAT):
+    """ncc_blocks on rendered frames [C, H, W] with a textureless strip, at
+    ``n`` random positions per camera over and past the image: within 1e-5
+    of its plain version on the card (the previous path) with identical
+    flags, then timed against it."""
+    from coslam_torch.ops.ncc import (extract_ncc_blocks_batched,
+                                      extract_ncc_blocks_batched_plain)
+    dev = imgs.device
+    C, h, w = imgs.shape
+    imgs = imgs.clone()
+    imgs[:, :, 300:340] = 7.0
+    pos = (torch.rand((C, n, 2), generator=gen)
+           * torch.tensor([w + 12.0, h + 12.0]) - 6.0).to(dev)
+    got = extract_ncc_blocks_batched(imgs, pos, radius)
+    want = extract_ncc_blocks_batched_plain(imgs, pos, radius)
+    torch.cuda.synchronize()
+    err = float((got[0] - want[0]).abs().max())
+    n_ok = int(want[1].sum())
+    check(f"ncc_blocks [{C},{h},{w}]", {
+        "blocks within 1e-5": err <= 1e-5,
+        "ok identical": torch.equal(got[1], want[1]),
+        "some blocks valid and some not": 0 < n_ok < C * n})
+    S = 2 * radius + 1
+    base = torch.floor(pos - radius).to(torch.int32)
+    nbytes = covered_pixels(h, w, C, base, S + 1, dev) * 4 + pos.numel() * 4 \
+        + got[0].numel() * 4 + got[1].numel()
+    # shift 7, mean 1, centre 1, square and sum 2, divide 1 per pixel
+    b_ms, b_by = bound_ms(nbytes, 12.0 * got[0].numel())
+
+    def kernel():
+        return extract_ncc_blocks_batched(imgs, pos, radius)
+
+    def plain():
+        return extract_ncc_blocks_batched_plain(imgs, pos, radius)
+    return dict(shape=f"[{C},{h},{w}] N={n} r={radius}", max_abs_err=err,
+                n_valid=n_ok, ms=device_time_ms(kernel), **in_turns(kernel,
+                                                                  plain),
+                bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+                **activity_counts(kernel, plain), library_ms=None)
+
+
+def ncc_search_record(img, gen, search_radius: int = 16, n: int = N_LOOP):
+    """ncc_search as loop closure calls it (radius 16: G = 43, 256 centres
+    up to 12 px off the templates' true positions, three so near the
+    border that their windows clamp) against its plain version on the
+    card (the previous path): the same best pixel on >= 99% of the
+    centres, scores within 1e-4, the clamped centres at NCC_INVALID; then
+    timed against it, and beside the plain version's grouped convolution
+    alone."""
+    import torch.nn.functional as F
+    from coslam_torch.ops.ncc import (NCC_INVALID, extract_ncc_blocks,
+                                      ncc_search, ncc_search_plain)
+    from coslam_torch.ops.patches import extract_windows
+    dev = img.device
+    h, w = img.shape
+    r, sr = 5, search_radius
+    S, G, K = 2 * r + 1, 2 * (r + sr) + 1, 2 * sr + 1
+    # windows clamp only for the first three centres: round(c) - 21 within
+    # [0, dim - 44] for every centre 12 px or less off a true position
+    true = torch.round(torch.rand((n, 2), generator=gen)
+                       * torch.tensor([w - 70.0, h - 70.0]) + 35.0)
+    centers = true + torch.randint(-12, 13, (n, 2), generator=gen)
+    centers[:3] = torch.tensor([[5.0, h / 2], [w / 2, h - 3.0],
+                                [w - 4.0, 10.0]])
+    centers, true = centers.to(dev), true.to(dev)
+    tmpl, _ = extract_ncc_blocks(img, true, r)
+    got = ncc_search(img, centers, tmpl, sr, r)
+    want = ncc_search_plain(img, centers, tmpl, sr, r)
+    torch.cuda.synchronize()
+    same = (got[0] == want[0]).all(1)
+    err = float((got[1] - want[1]).abs()[same].max())
+    log(f"ncc_search G={G} N={n}: same best pixel as its plain version on "
+        f"{float(same.float().mean()):.4f} of the centres, max score diff "
+        f"{err}")
+    check("ncc_search against its plain version", {
+        "same best pixel on >= 99%": float(same.float().mean()) >= 0.99,
+        "scores within 1e-4": err <= 1e-4,
+        "clamped centres at NCC_INVALID":
+            bool((got[1][:3] == NCC_INVALID).all()
+                 and (want[1][:3] == NCC_INVALID).all()
+                 and (got[1][3:] > NCC_INVALID).all())})
+    basec = torch.stack([
+        (torch.round(centers[:, 0]) - (r + sr)).clamp(0, w - G - 1),
+        (torch.round(centers[:, 1]) - (r + sr)).clamp(0, h - G - 1)],
+        -1).to(torch.int32)
+    nbytes = covered_pixels(h, w, 1, basec[None], G, dev) * 4 + \
+        centers.numel() * 4 + tmpl.numel() * 4 + n * 12
+    # the correlation (2 flop per template pixel per offset); the window
+    # sums, variance and score (~8 per offset)
+    flops = (2.0 * S * S + 8.0) * K * K * n
+    b_ms, b_by = bound_ms(nbytes, flops)
+    # the plain version's grouped convolution alone, on its windows
+    Wn = extract_windows(img[None], basec[None].contiguous(), G)[:, :, 0]
+    Wn = Wn.permute(2, 0, 1)[None].contiguous()
+    wt = tmpl.reshape(n, 1, S, S)
+
+    def kernel():
+        return ncc_search(img, centers, tmpl, sr, r)
+
+    def plain():
+        return ncc_search_plain(img, centers, tmpl, sr, r)
+    return dict(shape=f"[1,{h},{w}] G={G} N={n}", max_abs_err=err,
+                same_best_px=float(same.float().mean()),
+                ms=device_time_ms(kernel), **in_turns(kernel, plain),
+                bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+                bound_flops=flops, **activity_counts(kernel, plain),
+                conv_ms=device_time_ms(lambda: F.conv2d(Wn, wt, groups=n)),
+                library_ms=None)
+
+
 def phase_kernels():
     """Each kernel against its plain twin at both main paths' shapes: one
     camera (the rendered room) and three (the threecam_dyn rig). Returns
@@ -403,13 +558,17 @@ def phase_kernels():
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     n_lv = 4
-    res = {"build_pyramid": [], "klt_track": [], "extract_windows": []}
+    res = {"build_pyramid": [], "klt_track": [], "extract_windows": [],
+           "ncc_blocks": [], "ncc_search": []}
     rig, _, _ = threecam_scene(3, dev)
     render_agreement(rig, threecam_scene(3, "cpu")[0], "threecam_dyn")
     Rs, ts = orbit_trajectory(3, forward=0.04)
     mono = render_sequence(make_room(np.random.default_rng(0), size=10.0),
                            KPROD, Rs, ts, H, W, device=dev)
     for C, f0, f2 in ((3, rig[0], rig[2]), (1, mono[0][None], mono[2][None])):
+        rec = ncc_blocks_record(f0.contiguous(), gen)
+        res["ncc_blocks"].append(rec)
+        log(f"ncc_blocks {rec}")
         label = f"[{C},{H},{W}] {n_lv} levels"
         pyrs = []
         rec = pyramid_record(f0.contiguous(), n_lv, label, pyrs)
@@ -420,20 +579,25 @@ def phase_kernels():
                           f"[{C},{H},{W}] N={N_FEAT} {n_lv} levels")
         res["klt_track"].append(rec)
         log(f"klt_track {rec}")
-    # extract_windows: G=12 over the three cameras (the fused step's NCC
-    # blocks, inter-camera mapping, registration) and over one camera (the
-    # map init's per-camera blocks; the monocular step); G=14 and G=24 on
-    # each level of one camera (the plain KLT twin's windows)
+    # extract_windows at the plain versions' shapes: G=12 over three
+    # cameras and over one (the plain NCC blocks), G=14 and G=24 on each
+    # level of one camera (the plain KLT twin's windows)
     shapes = [(3, 0, 12), (1, 0, 12)] + \
         [(1, lv, G) for lv in range(n_lv) for G in (14, 24)]
     for C, lv, G in shapes:
         rec = windows_record(C, H >> lv, W >> lv, G, gen)
         res["extract_windows"].append(rec)
         log(f"extract_windows {rec}")
-    # the loop closure's template search: G = 43 (radius 16), N = 256
+    # the plain loop closure search's windows: G = 43 (radius 16), N = 256
     rec = windows_record(1, H, W, 43, gen, n=N_LOOP)
     res["extract_windows"].append(rec)
     log(f"extract_windows {rec}")
+    rec = ncc_search_record(mono[0].contiguous(), gen)
+    res["ncc_search"].append(rec)
+    log(f"ncc_search {rec}")
+    check("one device activity a call of each NCC kernel", {
+        f"{k} {r['shape']}: {r['activities']} <= 3": r["activities"] <= 3
+        for k in ("ncc_blocks", "ncc_search") for r in res[k]})
     ncc_search_agreement(mono[0], gen)
     return res
 
@@ -441,8 +605,9 @@ def phase_kernels():
 def ncc_search_agreement(img, gen):
     """ncc_search as loop closure calls it (radius 16, 256 centres a few
     px off the templates' true positions) on the card against the CPU:
-    the windows are exact, the convolutions sum in another order, so the
-    best pixel agrees on >= 99% of the centres and the scores to 1e-4."""
+    the kernel's sums run in another order than the CPU's convolutions, so
+    the best pixel agrees on >= 99% of the centres and the scores to
+    1e-4."""
     from coslam_torch.ops.ncc import extract_ncc_blocks, ncc_search
     img = img.cpu()
     true = torch.round(torch.rand((N_LOOP, 2), generator=gen)
@@ -464,10 +629,24 @@ def ncc_search_agreement(img, gen):
 
 def kernel_counters():
     from coslam_torch.ops.klt import klt_track
+    from coslam_torch.ops.ncc import extract_ncc_blocks_batched, ncc_search
     from coslam_torch.ops.patches import extract_windows
     from coslam_torch.ops.pyramid import build_pyramid
     return {"build_pyramid": build_pyramid, "klt_track": klt_track,
-            "extract_windows": extract_windows}
+            "extract_windows": extract_windows,
+            "ncc_blocks": extract_ncc_blocks_batched,
+            "ncc_search": ncc_search}
+
+
+def launch_checks(launches: dict, search: bool) -> dict:
+    """What a path's kernel counts must show: build_pyramid, klt_track and
+    ncc_blocks launched, ncc_search too where the path closes a loop
+    (``search``), and the window kernel not at all (its NCC uses are
+    ncc_blocks and ncc_search now)."""
+    need = ["build_pyramid", "klt_track", "ncc_blocks"] + \
+        (["ncc_search"] if search else [])
+    return {**{f"{k} launched": launches[k] > 0 for k in need},
+            "extract_windows not launched": launches["extract_windows"] == 0}
 
 
 def time_attempts(eng, device):
@@ -597,7 +776,7 @@ def phase_main_path(card: str):
         "trajectory shape": Rs.shape == (FRAMES, 3, 3)
         and ts.shape == (FRAMES, 3),
         "ATE < 2% of path": ate < 0.02 * path,
-        **{f"{name} launched": n > 0 for name, n in launches.items()},
+        **launch_checks(launches, search=False),
     })
     return launches, (cfg, K, frames)
 
@@ -606,8 +785,8 @@ def phase_multicam_path(card: str):
     """threecam_dyn at the production configuration, end to end on the
     card: the wide-baseline bootstrap at frame 0, keyframes and BA,
     finite poses and map, every camera's ATE under 2% of camera 0's path,
-    dynamic points on the last tracked frame, inter-camera points, and all
-    three kernels launched. 100 frames: no group merge is attempted (the
+    dynamic points on the last tracked frame, inter-camera points, and the
+    path's kernels launched. 100 frames: no group merge is attempted (the
     reference's merge check needs a split, loop closure starts at 120)."""
     from coslam_torch.io.ate import ate_rmse, camera_centers
     t0 = time.perf_counter()
@@ -661,7 +840,7 @@ def phase_multicam_path(card: str):
         "n_dynamic >= 1 on the last tracked frame":
             last.get("n_dynamic", 0) >= 1,
         "inter-camera points": n_inter > 0,
-        **{f"{name} launched": n > 0 for name, n in launches.items()},
+        **launch_checks(launches, search=False),
     })
     return launches, (cfg, K, frames)
 
@@ -749,7 +928,7 @@ def phase_multicam_small_agreement():
     agreement(cpu, gpu, Rs_gt, ts_gt, 0.25, "two-camera small input")
     check("two-camera small input", {
         "bootstrap at frame 0": boot_frame(cpu) == boot_frame(gpu) == 0,
-        **{f"{k} launched": v > 0 for k, v in launched.items()}})
+        **launch_checks(launched, search=False)})
 
 
 def phase_loop_small_agreement():
@@ -805,7 +984,7 @@ def phase_loop_small_agreement():
             bool(cpu.loop_log and gpu.loop_log) and
             abs(cpu.loop_log[0]["frame"] - gpu.loop_log[0]["frame"]) <= 5,
         "centres within 5% of path (rms)": rms < 0.05 * path,
-        **{f"{k} launched": v > 0 for k, v in launched.items()}})
+        **launch_checks(launched, search=True)})
 
 
 def splitmerge_scene(n: int, dev):
@@ -900,7 +1079,7 @@ def phase_splitmerge_path(card: str):
     groups split in frames 160-220, a merge is logged at frame >= 220, the
     groups are rejoined at the last frame, every camera's ATE (chain
     scales, as the accuracy harness computes it) under 2% of camera 0's
-    path, finite poses and map, all three kernels launched. Returns (the
+    path, finite poses and map, the path's kernels launched. Returns (the
     launches, a copy of the engine from two frames before the first
     merge, the frames, that copy's next frame)."""
     from coslam_torch.io.ate import ate_rmse, camera_centers
@@ -953,7 +1132,7 @@ def phase_splitmerge_path(card: str):
                             for R, t in trajs),
         "finite map": bool(len(ids) > 0 and np.isfinite(xyz).all()
                            and np.isfinite(cov).all()),
-        **{f"{name} launched": k > 0 for name, k in launches.items()},
+        **launch_checks(launches, search=False),
     })
     f0, snap = eng.snapshots[0]     # two frames before the first merge
     return launches, snap, frames, f0
@@ -963,13 +1142,10 @@ def phase_mono_loop_path(card: str):
     """mono_loop at the production configuration over 400 frames, default
     closure thresholds: a closure anchored at least loop_dormant_age
     frames before its frame, the ATE (chain scales) under 2% of the path,
-    and every G = 43 search of a closure attempt one launch of the window
-    kernel. (Counting all window launches against the tracked frames does
-    not show the search: a tracked frame cuts NCC blocks only when it mints
-    map points, so the run's total lies near the tracked-frame count with
-    or without it.)"""
+    and every G = 43 search of a closure attempt one launch of
+    ncc_search."""
     import coslam_torch.slam.loop as loop_mod
-    from coslam_torch.ops.patches import extract_windows
+    from coslam_torch.ops.ncc import ncc_search
     from coslam_torch.io.ate import ate_rmse, camera_centers
     n = LONG_FRAMES
     t0 = time.perf_counter()
@@ -978,13 +1154,13 @@ def phase_mono_loop_path(card: str):
     log(f"mono_loop: rendered {tuple(frames.shape)} in "
         f"{time.perf_counter() - t0:.2f} s")
     cfg = production_cfg(1)
-    searches = []       # window launches of each closure's ncc_search
+    searches = []       # kernel launches of each closure's ncc_search
     search = loop_mod.ncc_search
 
     def counted_search(*args, **kw):
-        n0 = extract_windows.launches
+        n0 = ncc_search.launches
         out = search(*args, **kw)
-        searches.append(extract_windows.launches - n0)
+        searches.append(ncc_search.launches - n0)
         return out
     loop_mod.ncc_search = counted_search
     t_run = time.perf_counter()
@@ -1011,7 +1187,7 @@ def phase_mono_loop_path(card: str):
         f"tracked-frame median {trk:.3f}, p90 {p90:.3f}, total "
         f"{run_s:.2f} s; card {card}")
     log(f"mono_loop: kernel launches {launches}, {n_tracked} tracked "
-        f"frames; window launches of each closure search (G = 43): "
+        f"frames; ncc_search launches of each closure search (G = 43): "
         f"{searches}")
     check("mono_loop", {
         "closure anchored on the dormant map":
@@ -1020,9 +1196,9 @@ def phase_mono_loop_path(card: str):
         "finite poses": bool(np.isfinite(Rs).all() and np.isfinite(ts).all()),
         "finite map": bool(len(ids) > 0 and np.isfinite(xyz).all()
                            and np.isfinite(cov).all()),
-        "each closure search one window launch":
+        "each closure search one ncc_search launch":
             bool(searches) and all(k == 1 for k in searches),
-        **{f"{name} launched": k > 0 for name, k in launches.items()},
+        **launch_checks(launches, search=True),
     })
     return launches
 
@@ -1054,7 +1230,8 @@ def phase_profile(eng, frames, warm: int, card: str, table_path,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     busy_us, launches = 0.0, 0
-    for e in prof.key_averages():
+    ka = prof.key_averages()            # aggregated once: ~100k+ events
+    for e in ka:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             busy_us += e.self_device_time_total
             launches += e.count
@@ -1077,7 +1254,7 @@ def phase_profile(eng, frames, warm: int, card: str, table_path,
             out += runtime_calls(ch)
         return out
     ranges = {}
-    for name in ("build_pyramid", "klt_track"):
+    for name in ("build_pyramid", "klt_track", "ncc_blocks"):
         evs = [e for e in events if e.name == name
                and e.device_type == torch.autograd.DeviceType.CPU]
         acts = [a for e in evs for rt in runtime_calls(e)
@@ -1095,11 +1272,10 @@ def phase_profile(eng, frames, warm: int, card: str, table_path,
         with open(table_path, "w") as fh:
             fh.write(f"card: {card}; frames {warm}..{warm + n - 1} of the "
                      f"production {label} config\n")
-            fh.write(prof.key_averages().table(
-                sort_by="self_device_time_total", row_limit=60))
+            fh.write(ka.table(sort_by="self_device_time_total",
+                              row_limit=60))
             fh.write("\n")
-            fh.write(prof.key_averages().table(
-                sort_by="self_cpu_time_total", row_limit=40))
+            fh.write(ka.table(sort_by="self_cpu_time_total", row_limit=40))
     log(f"profile {label}: {n} tracked frames ({warm}..{warm + n - 1}), wall "
         f"{wall_ms:.3f} ms/frame, device busy {busy_ms:.3f} ms/frame, idle "
         f"share {1.0 - busy_ms / wall_ms:.4f}, {launches / n:.1f} kernel "
@@ -1115,24 +1291,43 @@ def main():
     ap.add_argument("--profile-table", default=None,
                     help="write the profiler's operator tables here")
     args = ap.parse_args()
-    t_start = time.perf_counter()
+    t_start = t_lap = time.perf_counter()
+
+    def lap(phase: str):
+        """Log the wall time of the phase that just ended."""
+        nonlocal t_lap
+        now = time.perf_counter()
+        log(f"phase {phase}: {now - t_lap:.2f} s wall")
+        t_lap = now
     name, count, smi = phase_device()
     phase_build()
+    lap("build")
     per_shape = phase_kernels()
+    lap("kernels")
     phase_small_agreement()
+    lap("small agreement")
     mono, (cfg, K, frames) = phase_main_path(smi)
+    lap("mono")
     phase_profile(warmed_engine(cfg, K, frames, 30), frames, 30, smi,
                   args.profile_table, label="mono")
+    lap("mono profile")
     phase_multicam_small_agreement()
+    lap("two-camera small agreement")
     multi, (cfg, K, frames) = phase_multicam_path(smi)
+    lap("threecam_dyn")
     phase_profile(warmed_engine(cfg, K, frames, 20), frames, 20, smi,
                   args.profile_table and args.profile_table + ".threecam",
                   label="threecam_dyn")
+    lap("threecam_dyn profile")
     phase_loop_small_agreement()
+    lap("loop small agreement")
     split, eng, frames, f0 = phase_splitmerge_path(smi)
+    lap("splitmerge")
     phase_profile(eng, frames, f0, smi, args.profile_table and
                   args.profile_table + ".splitmerge", label="splitmerge")
+    lap("splitmerge profile")
     loop = phase_mono_loop_path(smi)
+    lap("mono_loop")
     by_path = {"mono": mono, "threecam_dyn": multi, "splitmerge": split,
                "mono_loop": loop}
     repo = "coslam_tpu"
@@ -1146,6 +1341,12 @@ def main():
         "extract_windows": dict(
             route="cuda", source="coslam_torch/csrc/extract_windows.cu",
             replaces=f"{repo}/ops/patches.py:198"),
+        "ncc_blocks": dict(
+            route="cuda", source="coslam_torch/csrc/ncc_blocks.cu",
+            replaces=f"{repo}/ops/patches.py:198"),
+        "ncc_search": dict(
+            route="cuda", source="coslam_torch/csrc/ncc_search.cu",
+            replaces=f"{repo}/ops/patches.py:198"),
     }
     kernels = []
     for kname, recs in per_shape.items():
@@ -1158,6 +1359,14 @@ def main():
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"])
+        for k in ("eager_ms", "turns_ms", "activities", "activity_names",
+                  "plain_activities", "conv_ms"):
+            if k in head:
+                rec[k] = head[k]
+        if kname == "ncc_blocks":
+            rec["one_camera"] = {k: recs[1][k] for k in (
+                "shape", "max_abs_err", "ms", "eager_ms", "plain_ms",
+                "bound_ms", "activities", "plain_activities")}
         if kname == "extract_windows":
             loop_rec = recs[-1]     # the loop closure's G = 43 search
             rec["loop_search"] = {k: loop_rec[k] for k in (

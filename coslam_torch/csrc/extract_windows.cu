@@ -1,11 +1,17 @@
-// Integer-origin window extraction for KLT templates/targets and NCC
-// blocks: out[g1, g2, c, n] = imgs[c, y0 + g1, x0 + g2], with the origin
-// (x0, y0) = base[c, n] clamped to [0, W-G] x [0, H-G].
+// Integer-origin window extraction: out[g1, g2, c, n] =
+// imgs[c, y0 + g1, x0 + g2], with the origin (x0, y0) = base[c, n]
+// clamped to [0, W-G] x [0, H-G].
 //
 // Replaces: coslam_tpu/ops/patches.py::_extract_windows_pallas, the Pallas
-// TPU kernel behind extract_windows (KLT: G = 14 templates and G = 24
-// targets per pyramid level; NCC: G = 12 blocks; the engine's loop
-// closure searches with ncc_search at radius 16, G = 43, N = 256).
+// TPU kernel behind extract_windows, one for one. The engine no longer
+// launches it on the card: its three uses there are kernels that cut
+// their windows on chip (the KLT's G = 14 templates and G = 24 targets:
+// csrc/klt_track.cu; the G = 12 NCC blocks: csrc/ncc_blocks.cu; loop
+// closure's G = 43 search: csrc/ncc_search.cu). It serves the plain
+// PyTorch versions of those kernels when they are given CUDA tensors
+// (ops/klt.py::klt_track_plain, ops/ncc.py::extract_ncc_blocks_batched_plain
+// and ncc_search_plain), which chip_smoke.py times on the card as the
+// "before" figures.
 //
 // The output is a verbatim copy of pixels, so it is bit-identical to the
 // plain PyTorch twin (ops/patches.py::extract_windows_plain, the flat-index

@@ -39,6 +39,12 @@ SIGNATURES = {
                   _I, _I, _I, _F, _F, _F, _F, _P],
     # extract_windows(imgs, base, out, C, H, W, N, G, stream)
     "extract_windows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # ncc_blocks(imgs, pos, blocks, ok, C, H, W, N, radius, xmax, ymax,
+    #            stream)
+    "ncc_blocks": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    # ncc_search(img, centers, templates, best_px, best_score, H, W, N,
+    #            patch_radius, search_radius, stream)
+    "ncc_search": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,9 +1,10 @@
 """Bilinear sampling, patch extraction and integer window extraction (the
 port of ``coslam_tpu/ops/patches.py``).
 
-``extract_windows`` is the memory-access core of the NCC block extractor
-and of the plain KLT tracker (the KLT kernel, ``csrc/klt_track.cu``, cuts
-its own windows): the CUDA kernel ``csrc/extract_windows.cu`` for CUDA
+``extract_windows`` is the memory-access core of the plain KLT tracker
+and of the plain NCC block extractor and template search (their kernels,
+``csrc/klt_track.cu``, ``ncc_blocks.cu`` and ``ncc_search.cu``, cut their
+own windows): the CUDA kernel ``csrc/extract_windows.cu`` for CUDA
 tensors, its plain twin ``extract_windows_plain`` (a flat-index gather)
 for CPU tensors. Both copy pixels verbatim, so they agree bit for bit.
 

@@ -1,8 +1,9 @@
 """Tests of the port that need a CUDA card: each CUDA kernel
-(build_pyramid, klt_track, extract_windows) against its plain PyTorch
-version at the main paths' shapes (one camera and three), the wrappers'
-input checks, and the engine on the card against the same run on the CPU
-(one camera, and two on the rig).
+(build_pyramid, klt_track, extract_windows, ncc_blocks, ncc_search)
+against its plain PyTorch version at the main paths' shapes (one camera
+and three; the loop closure's search), the wrappers' input checks, and
+the engine on the card against the same run on the CPU (one camera, and
+two on the rig).
 Where no card is present each test skips (the decision is made inside
 the ``cuda`` fixture, never at import).
 
@@ -171,13 +172,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 def test_engine_on_the_card_matches_the_cpu(cuda):
     """30 frames at small_test_config(1, 150, 200) on the card and on the
     CPU: the same bootstrap frame and keyframes (one entry apart at
-    most), both within the ATE bound, and both kernels launched on the
-    card."""
+    most), both within the ATE bound, and on the card build_pyramid, klt_track
+    and ncc_blocks launched and the window kernel not (its NCC uses are
+    fused into ncc_blocks)."""
     from coslam_torch.config import small_test_config
     from coslam_torch.io.ate import ate_rmse
     from coslam_torch.io.synthetic import (make_room, orbit_trajectory,
                                            render_sequence)
     from coslam_torch.ops.klt import klt_track
+    from coslam_torch.ops.ncc import extract_ncc_blocks_batched
     from coslam_torch.ops.patches import extract_windows
     from coslam_torch.ops.pyramid import build_pyramid
     from coslam_torch.slam.pipeline import CoSlamEngine
@@ -185,7 +188,8 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
     Rs, ts = orbit_trajectory(30, forward=0.06)
     frames = render_sequence(planes, tp.KMAT[0], Rs, ts, tp.H, tp.W,
                              device="cpu")
-    counters = (build_pyramid, klt_track, extract_windows)
+    counters = (build_pyramid, klt_track, extract_ncc_blocks_batched,
+                extract_windows)
     runs = {}
     for dev in ("cpu", "cuda"):
         n0 = [f.launches for f in counters]
@@ -196,8 +200,8 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
         launched = [f.launches - n for f, n in zip(counters, n0)]
         runs[dev] = (eng, launched)
     (cpu, l_cpu), (gpu, l_gpu) = runs["cpu"], runs["cuda"]
-    assert l_cpu == [0, 0, 0]
-    assert l_gpu[:2] == [30, 29] and l_gpu[2] > 0
+    assert l_cpu == [0, 0, 0, 0]
+    assert l_gpu[:2] == [30, 29] and l_gpu[2] > 0 and l_gpu[3] == 0
     assert tp.boot_frame(gpu.stats_log) == tp.boot_frame(cpu.stats_log)
     assert len(set(gpu.kf_frames) ^ set(cpu.kf_frames)) <= 2
     for eng in (cpu, gpu):
@@ -206,9 +210,9 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
 
 def test_ncc_blocks_on_the_card(cuda):
     """The NCC blocks of the three-camera step and of the map init (one
-    camera at a time) cut by the window kernel, against the CPU: the
-    window copies are exact, the shift and normalization round within
-    1e-5."""
+    camera at a time), one ncc_blocks launch each and no window launch,
+    against the CPU: the shift is exact, the normalization's sums round
+    within 1e-5."""
     from coslam_torch.ops.ncc import (extract_ncc_blocks,
                                       extract_ncc_blocks_batched)
     from coslam_torch.ops.patches import extract_windows
@@ -216,11 +220,12 @@ def test_ncc_blocks_on_the_card(cuda):
     imgs = np.concatenate([tp.smooth_texture(rng, 480, 640)
                            for _ in range(3)])
     pos = rng.uniform([-4, -4], [644, 484], (3, 1024, 2)).astype(np.float32)
-    n0 = extract_windows.launches
+    n0 = (extract_ncc_blocks_batched.launches, extract_windows.launches)
     got = extract_ncc_blocks_batched(tp.t(imgs).to(cuda),
                                      tp.t(pos).to(cuda), 5)
     one = extract_ncc_blocks(tp.t(imgs[1]).to(cuda), tp.t(pos[1]).to(cuda))
-    assert extract_windows.launches == n0 + 2
+    assert (extract_ncc_blocks_batched.launches,
+            extract_windows.launches) == (n0[0] + 2, n0[1])
     want = extract_ncc_blocks_batched(tp.t(imgs), tp.t(pos), 5)
     for g, w in ((got, want), (one, (want[0][1], want[1][1]))):
         np.testing.assert_array_equal(tp.n(g[1]), tp.n(w[1]))
@@ -229,8 +234,8 @@ def test_ncc_blocks_on_the_card(cuda):
 
 def test_ncc_search_on_the_card(cuda):
     """Loop closure's template search at its shape (radius 16: G = 43,
-    N = 256, one 480x640 image) on the card against the CPU: one window
-    launch; the windows are exact, the convolutions sum in another order,
+    N = 256, one 480x640 image) on the card against the CPU: one
+    ncc_search launch and no window launch; the sums run in another order,
     so the best pixel agrees on >= 99% of the centres and the scores to
     1e-4."""
     from coslam_torch.ops.ncc import extract_ncc_blocks, ncc_search
@@ -241,10 +246,11 @@ def test_ncc_search_on_the_card(cuda):
     centers = true + rng.integers(-12, 13, (256, 2)).astype(np.float32)
     centers[:3] = [[5, 200], [300, 470], [630, 10]]     # windows clamp
     tmpl, _ = extract_ncc_blocks(img, tp.t(true), 5)
-    n0 = extract_windows.launches
+    n0 = (ncc_search.launches, extract_windows.launches)
     got = ncc_search(img.to(cuda), tp.t(centers).to(cuda), tmpl.to(cuda),
                      search_radius=16, patch_radius=5)
-    assert extract_windows.launches == n0 + 1
+    assert (ncc_search.launches, extract_windows.launches) == \
+        (n0[0] + 1, n0[1])
     want = ncc_search(img, tp.t(centers), tmpl, search_radius=16,
                       patch_radius=5)
     gpx, gsc, wpx, wsc = (tp.n(a) for a in (*got, *want))
@@ -259,14 +265,15 @@ def test_two_camera_engine_on_the_card_matches_the_cpu(cuda):
     """20 frames of the two-camera rig at small_test_config(2, 150, 200) on
     the card and on the CPU: both bootstrap at frame 0, the same group
     ids, keyframes one entry apart at most, each camera's ATE under 0.25
-    (the bound of tests/test_pipeline_multicam.py), and every kernel
-    launched on the card (build_pyramid once a frame, klt_track once a
-    tracked frame)."""
+    (the bound of tests/test_pipeline_multicam.py), and on the card
+    build_pyramid once a frame, klt_track once a tracked frame, ncc_blocks
+    launched and the window kernel not."""
     from coslam_torch.config import small_test_config
     from coslam_torch.io.ate import ate_rmse
     from coslam_torch.io.synthetic import (make_room, render_sequence,
                                            rig_sequence)
     from coslam_torch.ops.klt import klt_track
+    from coslam_torch.ops.ncc import extract_ncc_blocks_batched
     from coslam_torch.ops.patches import extract_windows
     from coslam_torch.ops.pyramid import build_pyramid
     from coslam_torch.slam.pipeline import CoSlamEngine
@@ -276,7 +283,8 @@ def test_two_camera_engine_on_the_card_matches_the_cpu(cuda):
     frames = torch.stack([render_sequence(planes, tp.KMAT[0], Rs[c], ts[c],
                                           tp.H, tp.W, device="cpu")
                           for c in range(C)], dim=1)
-    counters = (build_pyramid, klt_track, extract_windows)
+    counters = (build_pyramid, klt_track, extract_ncc_blocks_batched,
+                extract_windows)
     runs = {}
     for dev in ("cpu", "cuda"):
         n0 = [f.launches for f in counters]
@@ -286,11 +294,146 @@ def test_two_camera_engine_on_the_card_matches_the_cpu(cuda):
             eng.process_frame(frames[f].to(dev))
         runs[dev] = (eng, [f.launches - k for f, k in zip(counters, n0)])
     (cpu, l_cpu), (gpu, l_gpu) = runs["cpu"], runs["cuda"]
-    assert l_cpu == [0, 0, 0]
-    assert l_gpu[:2] == [n, n - 1] and l_gpu[2] > 0
+    assert l_cpu == [0, 0, 0, 0]
+    assert l_gpu[:2] == [n, n - 1] and l_gpu[2] > 0 and l_gpu[3] == 0
     assert tp.boot_frame(gpu.stats_log) == tp.boot_frame(cpu.stats_log) == 0
     np.testing.assert_array_equal(gpu.group_id, cpu.group_id)
     assert len(set(gpu.kf_frames) ^ set(cpu.kf_frames)) <= 2
     for eng in (cpu, gpu):
         for c in range(C):
             assert ate_rmse(*eng.trajectory(c, True), Rs[c], ts[c]) < 0.25
+
+
+def _ncc_block_inputs(C, h, w, n, radius, seed):
+    """Smooth textures with a textureless strip on the last camera,
+    positions over and past the image (some out of range), positions on
+    the in-bounds limits and one NaN."""
+    rng = np.random.default_rng(seed)
+    imgs = np.concatenate([tp.smooth_texture(rng, h, w) for _ in range(C)])
+    imgs[C - 1, :, 300:360] = 7.0
+    pos = rng.uniform([-6, -6], [w + 6, h + 6], (C, n, 2)).astype(np.float32)
+    pos[0, :4] = [[radius, radius], [w - 1.001 - radius, h - 1.001 - radius],
+                  [radius - 0.01, 40.5], [w - 1.0 - radius, 40.5]]
+    pos[0, 4] = np.nan
+    return imgs, pos
+
+
+@pytest.mark.parametrize("C,radius", [(1, 5), (3, 5), (3, 3), (3, 7)])
+def test_ncc_blocks_kernel_matches_plain(cuda, C, radius):
+    """One ncc_blocks launch against the plain version on the card (its
+    windows cut by the window kernel) at N = 1024 per 480x640 camera: the
+    shift is the same rounded arithmetic, the two sums run in another
+    order, so the blocks agree within 1e-5 and `ok` is identical."""
+    from coslam_torch.ops.ncc import (extract_ncc_blocks_batched,
+                                      extract_ncc_blocks_batched_plain)
+    imgs, pos = _ncc_block_inputs(C, 480, 640, 1024, radius, seed=C + radius)
+    imgs, pos = tp.t(imgs).to(cuda), tp.t(pos).to(cuda)
+    n0 = extract_ncc_blocks_batched.launches
+    blocks, ok = extract_ncc_blocks_batched(imgs, pos, radius)
+    assert extract_ncc_blocks_batched.launches == n0 + 1
+    want_b, want_ok = extract_ncc_blocks_batched_plain(imgs, pos, radius)
+    torch.cuda.synchronize()
+    S = 2 * radius + 1
+    assert blocks.shape == (C, 1024, S * S) and blocks.is_contiguous()
+    assert ok.dtype == torch.bool and ok.shape == (C, 1024)
+    np.testing.assert_array_equal(tp.n(ok), tp.n(want_ok))
+    np.testing.assert_allclose(tp.n(blocks), tp.n(want_b), atol=1e-5)
+    okn = tp.n(ok)
+    assert okn[0, :2].all() and not okn[0, 2:5].any()
+    assert 0.5 * C * 1024 < okn.sum() < C * 1024
+    assert (tp.n(blocks)[~okn] == 0).all()
+
+
+def _search_inputs(h, w, n, sr, seed):
+    """A one-pass smooth texture, templates cut at integer true positions,
+    centres up to sr - 4 px off them, the first three centres so near the
+    border that their windows clamp."""
+    from coslam_torch.ops.ncc import extract_ncc_blocks
+    rng = np.random.default_rng(seed)
+    img = tp.t(tp.smooth_texture(rng, h, w, passes=1)[0])
+    m = 2 * sr + 10
+    true = np.round(rng.uniform(m, [w - m, h - m], (n, 2))).astype(np.float32)
+    off = rng.integers(-(sr - 4), sr - 3, (n, 2)).astype(np.float32)
+    centers = true + off
+    centers[:3] = [[5, h / 2], [w / 2, h - 3], [w - 4, 10]]
+    tmpl, _ = extract_ncc_blocks(img, tp.t(true), 5)
+    return img, tp.t(centers), tmpl, true
+
+
+@pytest.mark.parametrize("search_radius", [16, 6])
+def test_ncc_search_kernel_matches_plain(cuda, search_radius):
+    """One ncc_search launch against the plain version on the card at the
+    loop closure's search (radius 16: G = 43, N = 256) and the default
+    radius (6: G = 23): the same best pixel on >= 99% of the centres,
+    scores within 1e-4 where both agree, NCC_INVALID on the clamped
+    centres, and the true pixel found on most of the others."""
+    from coslam_torch.ops.ncc import ncc_search, ncc_search_plain
+    img, centers, tmpl, true = _search_inputs(480, 640, 256, search_radius,
+                                              seed=search_radius)
+    args = (img.to(cuda), centers.to(cuda), tmpl.to(cuda))
+    n0 = ncc_search.launches
+    got = ncc_search(*args, search_radius=search_radius, patch_radius=5)
+    assert ncc_search.launches == n0 + 1
+    want = ncc_search_plain(*args, search_radius=search_radius,
+                            patch_radius=5)
+    gpx, gsc, wpx, wsc = (tp.n(a) for a in (*got, *want))
+    same = (gpx == wpx).all(1)
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(gsc[same], wsc[same], atol=1e-4)
+    assert (gsc[:3] == -2.0).all() and (wsc[:3] == -2.0).all()
+    assert (gsc[3:] > -2.0).all()
+    assert (np.abs(gpx[3:] - true[3:]).max(1) == 0).mean() > 0.9
+
+
+def test_ncc_search_kernel_takes_the_first_of_tied_offsets(cuda):
+    """Centres on a flat region: every offset of a search scores the same,
+    so the kernel, as torch.argmax, picks offset 0 (best pixel = rounded
+    centre - search radius), with zero templates (as the plain version
+    does, at score 0) and with random ones."""
+    from coslam_torch.ops.ncc import ncc_search, ncc_search_plain
+    rng = np.random.default_rng(3)
+    img = np.full((200, 240), 93.0, np.float32)
+    img[:, 200:] = rng.uniform(0, 255, (200, 40))
+    centers = rng.uniform(40, [150, 150], (64, 2)).astype(np.float32)
+    tmpl = rng.standard_normal((64, 121)).astype(np.float32)
+    tmpl[:32] = 0.0
+    args = [tp.t(a).to(cuda) for a in (img, centers, tmpl)]
+    got = ncc_search(*args, search_radius=16, patch_radius=5)
+    want = ncc_search_plain(*args, search_radius=16, patch_radius=5)
+    first = np.round(centers) - 16
+    np.testing.assert_array_equal(tp.n(got[0]), first)
+    np.testing.assert_array_equal(tp.n(want[0])[:32], first[:32])
+    assert (tp.n(got[1])[:32] == 0).all() and (tp.n(want[1])[:32] == 0).all()
+
+
+def test_ncc_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from coslam_torch.ops.ncc import extract_ncc_blocks_batched, ncc_search
+    imgs = torch.rand((2, 64, 80), device=cuda) * 255
+    pos = torch.full((2, 8, 2), 30.0, device=cuda)
+    n0 = extract_ncc_blocks_batched.launches
+    for bad in [(imgs.double(), pos, 5), (imgs[0], pos[0], 5),
+                (imgs.transpose(1, 2), pos, 5),
+                (imgs, pos.double(), 5), (imgs, pos[:1], 5),
+                (imgs, pos.cpu(), 5), (imgs, pos, 8), (imgs, pos, -1),
+                (imgs[:, :11].contiguous(), pos, 5)]:
+        with pytest.raises(ValueError):
+            extract_ncc_blocks_batched(*bad)
+    assert extract_ncc_blocks_batched.launches == n0
+    img = imgs[0]
+    ctr = torch.full((8, 2), 40.0, device=cuda)
+    tmpl = torch.zeros((8, 121), device=cuda)
+    n0 = ncc_search.launches
+    for bad, kw in [((img.double(), ctr, tmpl), {}),
+                    ((imgs, ctr, tmpl), {}),
+                    ((img.t(), ctr, tmpl), {}),
+                    ((img, ctr.double(), tmpl), {}),
+                    ((img, ctr, tmpl[:4]), {}),
+                    ((img, ctr, tmpl[:, :49]), {}),
+                    ((img, ctr, tmpl.t().contiguous().t()), {}),
+                    ((img, ctr.cpu(), tmpl), {}),
+                    ((img, ctr, tmpl), {"patch_radius": 8}),
+                    ((img, ctr, tmpl), {"search_radius": 21}),
+                    ((img, ctr, tmpl), {"search_radius": 30})]:
+        with pytest.raises(ValueError):
+            ncc_search(*bad, **kw)
+    assert ncc_search.launches == n0
