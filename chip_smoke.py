@@ -3,7 +3,9 @@
 Builds the five CUDA kernels from coslam_torch/csrc (build_pyramid,
 klt_track, extract_windows, ncc_blocks, ncc_search), holds each against
 its plain PyTorch twin at the paths' shapes (one camera, three cameras,
-and the loop closure's G = 43 template search) and times both (on frames
+and the loop closure's G = 43 template search; and the general paths of
+klt_track, ncc_blocks and ncc_search at radius 9, search radius 24)
+and times both (on frames
 rendered on the card, held against the same frames rendered on the CPU;
 the two NCC kernels also against their plain versions, the previous NCC
 path, in turns, with the device activities of one call of each), then
@@ -11,7 +13,11 @@ drives the engine end to end on four paths at the production
 configuration (480x640, 4 KLT levels, 1024 features per camera, 8192 map
 points, 64 keyframes, BA window 5) in the synthetic room:
 - monocular, 100 frames: bootstrap, keyframes, BA, finiteness, the
-  Sim(3)-aligned ATE;
+  Sim(3)-aligned ATE, and the synchronizing calls a tracked frame (none
+  inside the tracked step);
+- the same 100 frames in the engine modes (chunk=4, overlap, async BA on
+  a side stream): every frame posed and logged, ATE, keyframes, BAs
+  applied through their events, synchronizing calls;
 - threecam_dyn, 100 frames (three cameras on a rig, a moving textured
   quad): the wide-baseline bootstrap at frame 0, keyframes, BA, every
   camera's ATE, dynamic points, inter-camera mapping and the groups;
@@ -28,8 +34,8 @@ only).
 Short runs at the CPU tests' size hold the engine on the card against the
 same engine on the CPU (the plain PyTorch versions, which
 tests/test_torch_*.py hold against the JAX package): one camera over 30
-frames, two cameras over 20, and mono_loop cut to 150x200 over 181 frames
-(a loop closure).
+frames (and the non-fused path over the same 30), two cameras over 20,
+and mono_loop cut to 150x200 over 181 frames (a loop closure).
 
 torch.profiler traces 5 tracked frames of a fresh run of mono and
 threecam_dyn, and of splitmerge around its first merge (replayed from a
@@ -41,6 +47,9 @@ also writes the operator tables to PATH (the others beside it, with a
 ``.threecam`` and ``.splitmerge`` suffix).
 
     python3 chip_smoke.py [--profile-table PATH]
+    python3 chip_smoke.py --syncs-only   # the sync count alone
+
+Each phase's wall time is logged.
 
 Exits non-zero on any failure (and without a CUDA device). The line before
 the last is the per-kernel JSON record; the last line is
@@ -55,6 +64,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -164,10 +174,9 @@ def activity_counts(kernel, plain) -> dict:
 def in_turns(kernel, plain) -> dict:
     """Eager device time of one call (CUDA events around 20 calls, median
     of 5) of the kernel's wrapper and of its plain version, in turns:
-    plain, kernel, kernel, plain. (The plain NCC versions build a small
-    host tensor each call, a synchronous copy that no CUDA graph can
-    capture, so this pair is timed eagerly; it includes the gaps the
-    host's launch path leaves between kernels.)"""
+    plain, kernel, kernel, plain. (Timed eagerly, as the engine calls
+    them: it includes the gaps the host's launch path leaves between the
+    plain versions' ~30-45 kernels.)"""
     t = [eager_time_ms(f, reps=20) for f in (plain, kernel, kernel, plain)]
     return dict(eager_ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
                 turns_ms=t)
@@ -348,16 +357,17 @@ def pyramid_record(img, n_lv: int, label: str, pyrs: list):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def klt_records(pyr0, pyr1, n_lv: int, label: str):
+def klt_records(pyr0, pyr1, n_lv: int, label: str, radius: int = 5):
     """klt_track against its plain twin on the 1024 corners of each camera
     of pyr0, with slots near the border, slots invalid on input and one
     NaN position (camera 0), as the engine's track table holds them; with
-    and without gain. Returns the timed record (with gain)."""
+    and without gain, at window radius ``radius`` (above 7: the kernel's
+    general path). Returns the timed record (with gain)."""
     from coslam_torch.config import KLTConfig
     from coslam_torch.ops.corners import detect_corners
     from coslam_torch.ops.klt import klt_track, klt_track_plain
     dev = pyr0.imgs[0].device
-    cfg = KLTConfig(n_levels=n_lv)
+    cfg = KLTConfig(n_levels=n_lv, window_radius=radius)
     det = detect_corners(pyr0.imgs[0], pyr0.dxs[0], pyr0.dys[0], cfg, N_FEAT)
     pos = det.pos.clone()
     valid = det.valid.clone()
@@ -369,7 +379,8 @@ def klt_records(pyr0, pyr1, n_lv: int, label: str):
     valid[0, 11] = False
     rec = None
     for with_gain in (True, False):
-        cfg = KLTConfig(n_levels=n_lv, track_with_gain=with_gain)
+        cfg = KLTConfig(n_levels=n_lv, track_with_gain=with_gain,
+                        window_radius=radius)
         got = klt_track(pyr0, pyr1, pos, valid, cfg)
         want = klt_track_plain(pyr0, pyr1, pos, valid, cfg)
         torch.cuda.synchronize()
@@ -480,7 +491,8 @@ def ncc_blocks_record(imgs, gen, radius: int = 5, n: int = N_FEAT):
                 **activity_counts(kernel, plain), library_ms=None)
 
 
-def ncc_search_record(img, gen, search_radius: int = 16, n: int = N_LOOP):
+def ncc_search_record(img, gen, search_radius: int = 16, n: int = N_LOOP,
+                      patch_radius: int = 5):
     """ncc_search as loop closure calls it (radius 16: G = 43, 256 centres
     up to 12 px off the templates' true positions, three so near the
     border that their windows clamp) against its plain version on the
@@ -494,12 +506,14 @@ def ncc_search_record(img, gen, search_radius: int = 16, n: int = N_LOOP):
     from coslam_torch.ops.patches import extract_windows
     dev = img.device
     h, w = img.shape
-    r, sr = 5, search_radius
+    r, sr = patch_radius, search_radius
     S, G, K = 2 * r + 1, 2 * (r + sr) + 1, 2 * sr + 1
-    # windows clamp only for the first three centres: round(c) - 21 within
-    # [0, dim - 44] for every centre 12 px or less off a true position
+    # windows clamp only for the first three centres: round(c) - (r + sr)
+    # within [0, dim - G - 1] for every centre 12 px or less off a true
+    # position (m = 35 at the engine's radii)
+    m = r + sr + 14
     true = torch.round(torch.rand((n, 2), generator=gen)
-                       * torch.tensor([w - 70.0, h - 70.0]) + 35.0)
+                       * torch.tensor([w - 2.0 * m, h - 2.0 * m]) + m)
     centers = true + torch.randint(-12, 13, (n, 2), generator=gen)
     centers[:3] = torch.tensor([[5.0, h / 2], [w / 2, h - 3.0],
                                 [w - 4.0, 10.0]])
@@ -555,6 +569,7 @@ def phase_kernels():
     {kernel: [records]}; the three-camera record comes first."""
     from coslam_torch.io.synthetic import (make_room, orbit_trajectory,
                                            render_sequence)
+    from coslam_torch.ops.pyramid import build_pyramid
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     n_lv = 4
@@ -599,6 +614,20 @@ def phase_kernels():
         f"{k} {r['shape']}: {r['activities']} <= 3": r["activities"] <= 3
         for k in ("ncc_blocks", "ncc_search") for r in res[k]})
     ncc_search_agreement(mono[0], gen)
+    # the general paths, at radii above the tuned paths' (window and patch
+    # radius 9, search radius 24), on one camera, in the same bands
+    general = {}
+    p0, p2 = (build_pyramid(mono[k][None].contiguous(), n_lv) for k in (0, 2))
+    general["klt_track"] = klt_records(
+        p0, p2, n_lv, f"[1,{H},{W}] N={N_FEAT} {n_lv} levels r=9", radius=9)
+    general["ncc_blocks"] = ncc_blocks_record(mono[0][None].contiguous(),
+                                              gen, radius=9)
+    general["ncc_search"] = ncc_search_record(mono[0].contiguous(), gen,
+                                              search_radius=24,
+                                              patch_radius=9)
+    for k, rec in general.items():
+        log(f"{k} general path {rec}")
+    res["general_radius"] = general
     return res
 
 
@@ -691,31 +720,78 @@ def engine_copy(eng):
     return new
 
 
-def run_engine(cfg, K, frames, device, snapshot_when=None):
-    """Drive a fresh engine over ``frames`` [F, C, H, W]. Returns (engine,
-    per-frame wall ms, ending in a device sync, and the kernel launches
-    of this run: the counts are set to 0 just before it). Merge and loop
-    attempts are timed into ``engine.attempts``. Before each frame for
-    which ``snapshot_when(engine)`` holds, a copy of the engine is kept
-    (untimed) in ``engine.snapshots``: the last three, as (frame, copy)."""
+class SyncCounter:
+    """Counts the synchronizing CUDA calls made while it is entered (under
+    torch.cuda.set_sync_debug_mode("warn"): a blocking copy, a stream or
+    event sync), in all and inside the tracked step (``fused.frame_step``,
+    also where ``frame_steps_scan`` calls it)."""
+
+    def __init__(self):
+        self.total = 0
+        self.in_step = 0
+
+    def _seen(self, message, *args, **kw):
+        if "synchronizing CUDA operation" not in str(message):
+            return
+        self.total += 1
+        f = sys._getframe()
+        while f is not None:
+            if f.f_code is self._step:
+                self.in_step += 1
+                return
+            f = f.f_back
+
+    def __enter__(self):
+        from coslam_torch.slam.fused import frame_step
+        self._step = frame_step.__code__
+        self._warnings = warnings.catch_warnings()
+        self._warnings.__enter__()
+        warnings.simplefilter("always")
+        warnings.showwarning = self._seen
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self._warnings.__exit__(*exc)
+
+
+def run_engine(cfg, K, frames, device, snapshot_when=None,
+               sync_each: bool = True, count_syncs: bool = False,
+               **engine_kw):
+    """Drive a fresh engine (keyword arguments ``engine_kw``: the modes)
+    over ``frames`` [F, C, H, W]. Returns (engine, per-frame wall ms, and
+    the kernel launches of this run: the counts are set to 0 just before
+    it). Each frame's wall ends in a device sync unless ``sync_each`` is
+    False (the chunk and overlap modes, whose point is not to wait: there
+    the last frame's wall ends in one). With ``count_syncs`` the
+    synchronizing calls of the run are counted into ``engine.syncs`` (a
+    SyncCounter). Merge and loop attempts are timed into
+    ``engine.attempts``. Before each frame for which
+    ``snapshot_when(engine)`` holds, a copy of the engine is kept (untimed)
+    in ``engine.snapshots``: the last three, as (frame, copy)."""
     import collections
+    import contextlib
     from coslam_torch.slam.pipeline import CoSlamEngine
     C = cfg.num_cameras
-    eng = CoSlamEngine(cfg, K, np.zeros((C, 5), np.float32), device=device)
+    eng = CoSlamEngine(cfg, K, np.zeros((C, 5), np.float32), device=device,
+                       **engine_kw)
     time_attempts(eng, device)
     eng.snapshots = collections.deque(maxlen=3)
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
     frame_ms = []
-    for f in range(frames.shape[0]):
-        if snapshot_when is not None and snapshot_when(eng):
-            eng.snapshots.append((f, engine_copy(eng)))
-        t0 = time.perf_counter()
-        eng.process_frame(frames[f].to(device))
-        if device == "cuda":
-            torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    eng.syncs = SyncCounter() if count_syncs else None
+    with eng.syncs or contextlib.nullcontext():
+        for f in range(frames.shape[0]):
+            if snapshot_when is not None and snapshot_when(eng):
+                eng.snapshots.append((f, engine_copy(eng)))
+            t0 = time.perf_counter()
+            eng.process_frame(frames[f].to(device))
+            if device == "cuda" and (sync_each or f == len(frames) - 1):
+                torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
     launches = {name: fn.launches for name, fn in counters.items()}
     return eng, np.asarray(frame_ms), launches
 
@@ -750,7 +826,8 @@ def phase_main_path(card: str):
     log(f"rendered {FRAMES} frames {tuple(frames.shape)} in "
         f"{time.perf_counter() - t0:.2f} s")
     t_run = time.perf_counter()
-    eng, frame_ms, launches = run_engine(cfg, K, frames, "cuda")
+    eng, frame_ms, launches = run_engine(cfg, K, frames, "cuda",
+                                         count_syncs=True)
     Rs, ts = eng.trajectory(0, correct=True)
     run_s = time.perf_counter() - t_run
     ids, xyz, cov = eng.map_points()
@@ -766,7 +843,12 @@ def phase_main_path(card: str):
         f"tracked-frame median {trk:.3f}, p90 {p90:.3f}, total "
         f"{run_s:.2f} s; card {card}")
     log(f"main path: kernel launches {launches}")
+    n_trk = sum("med_err" in s for s in eng.stats_log)
+    log(f"main path: {eng.syncs.total} synchronizing calls over {n_trk} "
+        f"tracked frames ({eng.syncs.total / n_trk:.3f} a tracked frame), "
+        f"{eng.syncs.in_step} inside frame_step; card {card}")
     check("main path", {
+        "frame_step never waits on the host": eng.syncs.in_step == 0,
         "bootstrapped": eng.bootstrapped,
         ">=3 keyframes": len(eng.kf_frames) >= 3,
         "BA ran": eng.ba_runs >= 1,
@@ -778,7 +860,120 @@ def phase_main_path(card: str):
         "ATE < 2% of path": ate < 0.02 * path,
         **launch_checks(launches, search=False),
     })
-    return launches, (cfg, K, frames)
+    return launches, (cfg, K, frames), len(eng.kf_frames)
+
+
+def phase_modes(card: str, frames, n_kf_default: int):
+    """The production mono scene of the main path (the same 100 frames) in
+    the reference's engine modes at once: chunk=4, overlap=True,
+    async_ba=True, with no device sync between frames. Every frame posed
+    and logged, ATE under 2% of the path, at least half the default
+    mode's keyframes (the band of tests/test_chunk_mode.py), two or more
+    BAs dispatched to the side stream, every one applied or cancelled and
+    at least one applied once its event completed (not through
+    max_defer), the path's kernels launched (build_pyramid on every frame,
+    klt_track on every tracked one), and no synchronizing call inside the
+    tracked step."""
+    from coslam_torch.io.ate import ate_rmse, camera_centers
+    from coslam_torch.io.synthetic import orbit_trajectory
+    cfg = production_cfg(1)
+    Rs_gt, ts_gt = orbit_trajectory(FRAMES, forward=0.04)
+    t_run = time.perf_counter()
+    eng, frame_ms, launches = run_engine(
+        cfg, KPROD[None], frames, "cuda", sync_each=False, count_syncs=True,
+        chunk=4, overlap=True, async_ba=True)
+    eng._apply_pending_ba()
+    # the trajectory drains the last chunk's frames: their launches count
+    Rs, ts = eng.trajectory(0, correct=True)
+    launches = {k: fn.launches for k, fn in kernel_counters().items()}
+    run_s = time.perf_counter() - t_run
+    c_gt = camera_centers(Rs_gt, ts_gt)
+    path = float(np.linalg.norm(np.diff(c_gt, axis=0), axis=-1).sum())
+    ate = ate_rmse(Rs, ts, Rs_gt, ts_gt)
+    logged = [s["frame"] for s in eng.stats_log]
+    boot = boot_frame(eng)
+    trk = frame_ms[boot + 1:] if boot is not None else frame_ms
+    n_trk = sum("med_err" in s for s in eng.stats_log)
+    ba = eng.ba_async
+    log(f"modes: keyframes {eng.kf_frames} ({len(eng.kf_frames)}, default "
+        f"mode {n_kf_default}); BA {ba}")
+    log(f"modes: ATE {ate:.6f} over a {path:.4f} path "
+        f"({100 * ate / path:.4f}%)")
+    log(f"modes: per-call wall after the bootstrap (host, no sync between "
+        f"frames) median {float(np.median(trk)):.3f} ms, p90 "
+        f"{float(np.percentile(trk, 90)):.3f} ms, mean "
+        f"{float(trk.mean()):.3f} ms a tracked frame; total {run_s:.2f} s; "
+        f"card {card}")
+    log(f"modes: {eng.syncs.total} synchronizing calls over {n_trk} tracked "
+        f"frames ({eng.syncs.total / n_trk:.3f} a tracked frame), "
+        f"{eng.syncs.in_step} inside frame_step; timing "
+        f"{ {k: round(v, 4) for k, v in sorted(eng.timing.items())} }")
+    log(f"modes: kernel launches {launches}")
+    check("modes", {
+        "every frame posed": Rs.shape == (FRAMES, 3, 3)
+        and bool(np.isfinite(Rs).all() and np.isfinite(ts).all()),
+        "every frame logged once": logged == list(range(FRAMES)),
+        "buffers drained": not eng._chunk_buf
+        and eng._chunk_pending is None and eng._pending_fs is None,
+        "ATE < 2% of path": ate < 0.02 * path,
+        "keyframes >= half the default mode's":
+            len(eng.kf_frames) >= 0.5 * n_kf_default,
+        ">= 2 BAs dispatched asynchronously": ba["dispatched"] >= 2,
+        "every BA applied or cancelled": eng._pending_ba is None
+        and ba["dispatched"] == ba["ready"] + ba["deferred"]
+        + ba["flushed"] + ba["cancelled"],
+        "a BA applied through its event": ba["ready"] >= 1,
+        "build_pyramid on every frame": launches["build_pyramid"] == FRAMES,
+        "klt_track on every tracked frame":
+            launches["klt_track"] == FRAMES - 1,
+        "ncc_blocks launched": launches["ncc_blocks"] > 0,
+        "frame_step never waits on the host": eng.syncs.in_step == 0,
+    })
+    return launches
+
+
+def phase_syncs(card: str, n: int = 40):
+    """Only the count of synchronizing calls: the default mono engine over
+    the main path's first ``n`` frames at the production configuration.
+    It uses nothing newer than the engine's default mode, so it runs
+    against an older version of the package put beside this script."""
+    from coslam_torch.io.synthetic import (make_room, orbit_trajectory,
+                                           render_sequence)
+    Rs_gt, ts_gt = orbit_trajectory(FRAMES, forward=0.04)
+    frames = render_sequence(make_room(np.random.default_rng(0), size=10.0),
+                             KPROD, Rs_gt[:n], ts_gt[:n], H, W,
+                             device="cuda")[:, None]
+    eng, frame_ms, _ = run_engine(production_cfg(1), KPROD[None], frames,
+                                  "cuda", count_syncs=True)
+    n_trk = sum("med_err" in s for s in eng.stats_log)
+    med, trk, p90 = frame_times(eng, frame_ms)
+    rec = dict(frames=n, tracked=n_trk, syncs=eng.syncs.total,
+               syncs_per_tracked_frame=eng.syncs.total / n_trk,
+               in_frame_step=eng.syncs.in_step,
+               in_frame_step_per_tracked_frame=eng.syncs.in_step / n_trk,
+               tracked_median_ms=trk, tracked_p90_ms=p90, card=card)
+    log(f"syncs: {json.dumps(rec)}")
+    return rec
+
+
+def phase_non_fused_small_agreement():
+    """The non-fused path (use_fused=False) on the card against the same
+    path on the CPU, at the size and in the band of
+    phase_small_agreement."""
+    from coslam_torch.config import small_test_config
+    from coslam_torch.io.synthetic import (make_room, orbit_trajectory,
+                                           render_sequence)
+    h, w, n = 150, 200, 30
+    K = np.array([[[180.0, 0, 100], [0, 180.0, 75], [0, 0, 1]]], np.float32)
+    Rs_gt, ts_gt = orbit_trajectory(n, forward=0.06)
+    frames = render_sequence(make_room(np.random.default_rng(0), size=10.0),
+                             K[0], Rs_gt, ts_gt, h, w, device="cpu")[:, None]
+    cfg = small_test_config(1, h, w)
+    cpu, _, _ = run_engine(cfg, K, frames, "cpu", use_fused=False)
+    gpu, _, launched = run_engine(cfg, K, frames, "cuda", use_fused=False)
+    agreement(cpu, gpu, Rs_gt[None], ts_gt[None], 0.20,
+              "non-fused small input")
+    check("non-fused small input", launch_checks(launched, search=False))
 
 
 def phase_multicam_path(card: str):
@@ -972,8 +1167,8 @@ def phase_loop_small_agreement():
     ates = [ate_rmse(*tr, Rs_gt, ts_gt) for tr in trajs]
     log(f"loop small input: closures cpu {cpu.loop_log} card {gpu.loop_log}")
     log(f"loop small input: centre gap rms {rms:.6f} over a {path:.4f} "
-        f"path; ATE cpu {ates[0]:.6f} card {ates[1]:.6f}; card launches "
-        f"{launched}")
+        f"path ({100 * rms / path:.4f}% of it, bound 5%); ATE cpu "
+        f"{ates[0]:.6f} card {ates[1]:.6f}; card launches {launched}")
 
     def anchored(eng):
         return any(lc["frame"] - lc["f_anchor"] >= age for lc in eng.loop_log)
@@ -1290,7 +1485,16 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile-table", default=None,
                     help="write the profiler's operator tables here")
+    ap.add_argument("--syncs-only", action="store_true",
+                    help="only count the default mono engine's "
+                    "synchronizing calls over 40 frames (runs against an "
+                    "older version of the package beside this script)")
     args = ap.parse_args()
+    if args.syncs_only:
+        _, _, smi = phase_device()
+        phase_build()
+        phase_syncs(smi)
+        return
     t_start = t_lap = time.perf_counter()
 
     def lap(phase: str):
@@ -1306,8 +1510,12 @@ def main():
     lap("kernels")
     phase_small_agreement()
     lap("small agreement")
-    mono, (cfg, K, frames) = phase_main_path(smi)
+    mono, (cfg, K, frames), n_kf = phase_main_path(smi)
     lap("mono")
+    modes = phase_modes(smi, frames, n_kf)
+    lap("modes")
+    phase_non_fused_small_agreement()
+    lap("non-fused small agreement")
     phase_profile(warmed_engine(cfg, K, frames, 30), frames, 30, smi,
                   args.profile_table, label="mono")
     lap("mono profile")
@@ -1328,8 +1536,9 @@ def main():
     lap("splitmerge profile")
     loop = phase_mono_loop_path(smi)
     lap("mono_loop")
-    by_path = {"mono": mono, "threecam_dyn": multi, "splitmerge": split,
-               "mono_loop": loop}
+    by_path = {"mono": mono, "modes": modes, "threecam_dyn": multi,
+               "splitmerge": split, "mono_loop": loop}
+    general = per_shape.pop("general_radius")
     repo = "coslam_tpu"
     meta = {
         "build_pyramid": dict(
@@ -1367,6 +1576,10 @@ def main():
             rec["one_camera"] = {k: recs[1][k] for k in (
                 "shape", "max_abs_err", "ms", "eager_ms", "plain_ms",
                 "bound_ms", "activities", "plain_activities")}
+        if kname in general:
+            rec["general_radius"] = {k: general[kname][k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by")}
         if kname == "extract_windows":
             loop_rec = recs[-1]     # the loop closure's G = 43 search
             rec["loop_search"] = {k: loop_rec[k] for k in (

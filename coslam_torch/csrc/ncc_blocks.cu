@@ -45,13 +45,24 @@
 // lanes write the block's floats in order, so each store instruction of
 // the warp covers 128 consecutive bytes. No block barrier, no atomics, no
 // scratch in device memory: the window never leaves the chip.
+//
+// Radii above 7 (any radius the image holds) take a general path: the
+// same warp per feature and the same arithmetic in the same order, but
+// the block's pixels are recomputed from the window in each of the three
+// passes (sum, centred sum of squares, output) instead of kept in
+// registers, and the window sits in dynamic shared memory (up to four
+// warps a block, as many as the card's opt-in shared memory holds) or,
+// where one window does not fit, is read straight from the image in
+// device memory (the origin is clamped into the image, so the window is
+// the same pixels either way). At a radius the tuned path takes, the
+// general path gives the same bits.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int MAX_RADIUS = 7;                      // ops/ncc.py MAX_RADIUS
+constexpr int MAX_RADIUS = 7;                      // the tuned path's radii
 constexpr int WARPS = 4;                           // features per block
 constexpr int MAX_S = 2 * MAX_RADIUS + 1;          // block side
 constexpr int MAX_L = MAX_S + 1;                   // window side
@@ -149,20 +160,122 @@ ncc_blocks_kernel(const float* __restrict__ imgs,
   if (lane == 0) ok_out[f] = ok;
 }
 
+// The general path (any radius): lane l handles block pixels l, l + 32,
+// ... as above, recomputing each pixel's shift in every pass. SHARED: the
+// window is copied into this warp's slice of dynamic shared memory;
+// otherwise it is read in place from the image.
+template <bool SHARED>
+__global__ void __launch_bounds__(WARPS * 32)
+ncc_blocks_general_kernel(const float* __restrict__ imgs,
+                          const float* __restrict__ pos,
+                          float* __restrict__ blocks,
+                          unsigned char* __restrict__ ok_out, int C, int H,
+                          int W, int N, int r, float xmax, float ymax) {
+  extern __shared__ float s_dyn[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int f = blockIdx.x * warps + warp;
+  if (f >= C * N) return;               // a whole warp; no block barrier
+  const int c = f / N;
+  const int S = 2 * r + 1, L = S + 1, NP = S * S;
+  const float fr = (float)r;
+
+  const float px = pos[2 * f], py = pos[2 * f + 1];
+  const float ex = __fsub_rn(px, fr), ey = __fsub_rn(py, fr);
+  const int x0 = clampi(floor_int(ex), 0, W - L);
+  const int y0 = clampi(floor_int(ey), 0, H - L);
+  const float* img = imgs + (size_t)c * H * W;
+  const float* wnd = img + (size_t)y0 * W + x0;
+  int ld = W;
+  if (SHARED) {
+    float* w = s_dyn + (size_t)warp * L * L;
+    for (int i = lane; i < L * L; i += 32) {
+      const int y = i / L, x = i - y * L;
+      __pipeline_memcpy_async(w + i, wnd + (size_t)y * W + x,
+                              sizeof(float));
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncwarp();
+    wnd = w;
+    ld = L;
+  }
+  const float fx = clamp01(__fsub_rn(ex, (float)x0));
+  const float fy = clamp01(__fsub_rn(ey, (float)y0));
+  const float gx = __fsub_rn(1.f, fx), gy = __fsub_rn(1.f, fy);
+  const float w00 = __fmul_rn(gx, gy), w01 = __fmul_rn(fx, gy);
+  const float w10 = __fmul_rn(gx, fy), w11 = __fmul_rn(fx, fy);
+  auto shifted = [&](int p) {
+    const float* q = wnd + (size_t)(p / S) * ld + p % S;
+    float t = __fmul_rn(q[0], w00);
+    t = __fadd_rn(t, __fmul_rn(q[1], w01));
+    t = __fadd_rn(t, __fmul_rn(q[ld], w10));
+    return __fadd_rn(t, __fmul_rn(q[ld + 1], w11));
+  };
+  float s = 0.f;
+  for (int p = lane; p < NP; p += 32) s = __fadd_rn(s, shifted(p));
+  const float mean = __fdiv_rn(warp_sum(s), (float)NP);
+  float s2 = 0.f;
+  for (int p = lane; p < NP; p += 32) {
+    const float v = __fsub_rn(shifted(p), mean);
+    s2 = __fadd_rn(s2, __fmul_rn(v, v));
+  }
+  const float norm = __fsqrt_rn(warp_sum(s2));
+  const bool ok = px >= fr && py >= fr && px <= xmax && py <= ymax &&
+                  norm > 1e-3f;
+  const float den = fmaxf(norm, 1e-6f);
+  float* out = blocks + (size_t)f * NP;
+  for (int p = lane; p < NP; p += 32)
+    out[p] = ok ? __fdiv_rn(__fsub_rn(shifted(p), mean), den) : 0.f;
+  if (lane == 0) ok_out[f] = ok;
+}
+
+int launch_general(const float* imgs, const float* pos, float* blocks,
+                   unsigned char* ok, int C, int H, int W, int N, int radius,
+                   float xmax, float ymax, cudaStream_t stream) {
+  const int L = 2 * radius + 2;
+  const size_t per_warp = sizeof(float) * (size_t)L * L;
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  const int warps = (int)(per_warp > 0 ? (size_t)optin / per_warp : 0);
+  const int features = C * N;
+  if (warps >= 1) {
+    const int w = warps < WARPS ? warps : WARPS;
+    const size_t bytes = per_warp * w;
+    if (bytes > 48 * 1024)
+      cudaFuncSetAttribute(ncc_blocks_general_kernel<true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+    ncc_blocks_general_kernel<true><<<(features + w - 1) / w, w * 32, bytes,
+                                      stream>>>(imgs, pos, blocks, ok, C, H,
+                                                W, N, radius, xmax, ymax);
+  } else {
+    ncc_blocks_general_kernel<false><<<(features + WARPS - 1) / WARPS,
+                                       WARPS * 32, 0, stream>>>(
+        imgs, pos, blocks, ok, C, H, W, N, radius, xmax, ymax);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // imgs: [C, H, W] f32; pos: [C, N, 2] f32 (x, y); outputs blocks
 // [C, N, (2 radius + 1)^2] f32 and ok [C, N] bool (one byte each); all
 // contiguous. xmax, ymax: the largest in-bounds x and y (W - 1.001 - radius
-// and H - 1.001 - radius). Requires 0 <= radius <= 7 and a window of
-// 2 radius + 2 pixels inside the image. Launches on `stream`; returns
-// cudaGetLastError().
+// and H - 1.001 - radius). Requires radius >= 0 and a window of
+// 2 radius + 2 pixels inside the image; radii above 7 take the general
+// path. Launches on `stream`; returns cudaGetLastError().
 extern "C" int ncc_blocks(const float* imgs, const float* pos, float* blocks,
                           unsigned char* ok, int C, int H, int W, int N,
                           int radius, float xmax, float ymax, void* stream) {
-  if (radius < 0 || radius > MAX_RADIUS || C < 1 || N < 1 ||
-      2 * radius + 2 > H || 2 * radius + 2 > W)
+  if (radius < 0 || C < 1 || N < 1 || 2 * radius + 2 > H ||
+      2 * radius + 2 > W)
     return (int)cudaErrorInvalidValue;
+  if (radius > MAX_RADIUS)
+    return launch_general(imgs, pos, blocks, ok, C, H, W, N, radius, xmax,
+                          ymax, (cudaStream_t)stream);
   const int features = C * N;
   ncc_blocks_kernel<<<(features + WARPS - 1) / WARPS, WARPS * 32, 0,
                       (cudaStream_t)stream>>>(imgs, pos, blocks, ok, C, H, W,

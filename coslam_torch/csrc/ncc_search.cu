@@ -58,6 +58,17 @@
 // radius is a run-time argument. Each thread keeps its best (score,
 // index); a warp shuffle and a pass over the warps' bests give the
 // block's, with the lower index winning ties.
+//
+// Patch radii above 7, search radii above 20, or a window the tuned
+// path's 48 KB cannot hold, take a general path: one block of 128
+// threads per centre; thread k scores offsets k, k + 128, ... each on its
+// own (the patch sum, sum of squares and correlation over the S x S patch
+// in row-major order, with FMAs, then the same variance, score and
+// arg-max rule), reading the window and the template from dynamic shared
+// memory, or from device memory where they do not fit there (the window's
+// origin is clamped into the image, so the pixels are the same). Every
+// offset's sums run in one order over its values, so offsets over
+// identical pixels tie exactly, as above.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -66,8 +77,8 @@
 
 namespace {
 
-constexpr int MAX_RADIUS = 7;         // ops/ncc.py MAX_RADIUS
-constexpr int MAX_SEARCH = 20;        // ops/ncc.py MAX_SEARCH_RADIUS
+constexpr int MAX_RADIUS = 7;         // the tuned path's patch radii
+constexpr int MAX_SEARCH = 20;        // and search radii
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int V = 11;                 // outputs per strip
@@ -277,25 +288,140 @@ int launch(const float* img, const float* centers, const float* templates,
   return (int)cudaGetLastError();
 }
 
+// The general path (any radii): SHARED copies the window and the template
+// into dynamic shared memory; otherwise both are read in place.
+template <bool SHARED>
+__global__ void __launch_bounds__(THREADS)
+ncc_search_general_kernel(const float* __restrict__ img,
+                          const float* __restrict__ centers,
+                          const float* __restrict__ templates,
+                          float* __restrict__ best_px,
+                          float* __restrict__ best_score, int H, int W,
+                          int r, int sr) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int n = blockIdx.x, tid = threadIdx.x;
+  const int S = 2 * r + 1, NP = S * S, G = S + 2 * sr, K = 2 * sr + 1;
+  const int bx = round_int(centers[2 * n]) - (r + sr);
+  const int by = round_int(centers[2 * n + 1]) - (r + sr);
+  const int x0 = clampi(bx, 0, W - G - 1), y0 = clampi(by, 0, H - G - 1);
+  const float* wnd = img + (size_t)y0 * W + x0;
+  const float* tmpl = templates + (size_t)n * NP;
+  int ld = W;
+  if (SHARED) {
+    float* t_s = smem;
+    float* w_s = smem + NP;
+    for (int i = tid; i < G * G; i += THREADS) {
+      const int y = i / G, x = i - y * G;
+      __pipeline_memcpy_async(w_s + i, wnd + (size_t)y * W + x,
+                              sizeof(float));
+    }
+    __pipeline_commit();
+    for (int i = tid; i < NP; i += THREADS) t_s[i] = __ldg(tmpl + i);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    wnd = w_s;
+    tmpl = t_s;
+    ld = G;
+  }
+  float best = __int_as_float(0xff800000);   // -inf
+  int best_i = INT_MAX;
+  for (int idx = tid; idx < K * K; idx += THREADS) {
+    const int dy = idx / K, dx = idx - dy * K;
+    float sp = 0.f, sp2 = 0.f, dot = 0.f;
+    for (int i = 0; i < S; ++i) {
+      const float* row = wnd + (size_t)(dy + i) * ld + dx;
+      const float* trow = tmpl + i * S;
+      for (int j = 0; j < S; ++j) {
+        const float p = row[j];
+        sp += p;
+        sp2 = fmaf(p, p, sp2);
+        dot = fmaf(trow[j], p, dot);
+      }
+    }
+    const float var =
+        fmaxf(sp2 - __fdiv_rn(__fmul_rn(sp, sp), (float)NP), 1e-6f);
+    const float score = __fdiv_rn(dot, __fsqrt_rn(var));
+    if (beats(score, idx, best, best_i)) {
+      best = score;
+      best_i = idx;
+    }
+  }
+  __shared__ float s_best[WARPS];
+  __shared__ int s_idx[WARPS];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float b = __shfl_down_sync(0xffffffffu, best, o);
+    const int bi = __shfl_down_sync(0xffffffffu, best_i, o);
+    if (beats(b, bi, best, best_i)) {
+      best = b;
+      best_i = bi;
+    }
+  }
+  if ((tid & 31) == 0) {
+    s_best[tid >> 5] = best;
+    s_idx[tid >> 5] = best_i;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < WARPS; ++w) {
+      if (beats(s_best[w], s_idx[w], best, best_i)) {
+        best = s_best[w];
+        best_i = s_idx[w];
+      }
+    }
+    best_px[2 * n] = (float)(x0 + best_i % K + r);
+    best_px[2 * n + 1] = (float)(y0 + best_i / K + r);
+    best_score[n] = (bx == x0 && by == y0) ? best : -2.f;
+  }
+}
+
+int launch_general(const float* img, const float* centers,
+                   const float* templates, float* best_px, float* best_score,
+                   int H, int W, int N, int r, int sr, cudaStream_t stream) {
+  const int S = 2 * r + 1, G = S + 2 * sr;
+  const size_t bytes = sizeof(float) * ((size_t)S * S + (size_t)G * G);
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  if (bytes + sizeof(float) * 2 * WARPS <= (size_t)optin) {
+    if (bytes > 48 * 1024)
+      cudaFuncSetAttribute(ncc_search_general_kernel<true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+    ncc_search_general_kernel<true><<<N, THREADS, bytes, stream>>>(
+        img, centers, templates, best_px, best_score, H, W, r, sr);
+  } else {
+    ncc_search_general_kernel<false><<<N, THREADS, 0, stream>>>(
+        img, centers, templates, best_px, best_score, H, W, r, sr);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // img: [H, W] f32; centers: [N, 2] f32 (x, y); templates: [N, S^2] f32
 // (S = 2 patch_radius + 1, pre-normalized blocks); outputs best_px [N, 2]
-// and best_score [N] f32; all contiguous. Requires 0 <= patch_radius <= 7,
-// 0 <= search_radius <= 20 and a search window of S + 2 search_radius + 1
-// pixels inside the image (at most 48 KB of shared memory a block).
-// Launches on `stream`; returns cudaGetLastError().
+// and best_score [N] f32; all contiguous. Requires both radii >= 0 and a
+// search window of S + 2 search_radius + 1 pixels inside the image; a
+// patch radius above 7, a search radius above 20 or a window whose strips
+// need more than 48 KB of shared memory take the general path. Launches
+// on `stream`; returns cudaGetLastError().
 extern "C" int ncc_search(const float* img, const float* centers,
                           const float* templates, float* best_px,
                           float* best_score, int H, int W, int N,
                           int patch_radius, int search_radius, void* stream) {
   const int S = 2 * patch_radius + 1, G = S + 2 * search_radius;
-  if (patch_radius < 0 || patch_radius > MAX_RADIUS || search_radius < 0 ||
-      search_radius > MAX_SEARCH || N < 1 || G + 1 > H || G + 1 > W ||
-      sizeof(float) * smem_floats(S, search_radius) > 48 * 1024)
+  if (patch_radius < 0 || search_radius < 0 || N < 1 || G + 1 > H ||
+      G + 1 > W)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int sr = search_radius;
+  if (patch_radius > MAX_RADIUS || search_radius > MAX_SEARCH ||
+      sizeof(float) * smem_floats(S, search_radius) > 48 * 1024)
+    return launch_general(img, centers, templates, best_px, best_score, H,
+                          W, N, patch_radius, sr, s);
   switch (patch_radius) {
     case 0: return launch<0>(img, centers, templates, best_px, best_score,
                              H, W, N, sr, s);

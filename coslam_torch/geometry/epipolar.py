@@ -196,6 +196,8 @@ def essential_from_poses(R1, t1, R2, t2) -> torch.Tensor:
 def fundamental_from_poses(K1, R1, t1, K2, R2, t2) -> torch.Tensor:
     """F = K2^{-T} E K1^{-1}, unit Frobenius norm."""
     E = essential_from_poses(R1, t1, R2, t2)
-    F = torch.linalg.inv(K2).transpose(-1, -2) @ E @ torch.linalg.inv(K1)
+    # inv_ex: no host sync for the error check
+    F = torch.linalg.inv_ex(K2)[0].transpose(-1, -2) @ E @ \
+        torch.linalg.inv_ex(K1)[0]
     nrm = torch.linalg.norm(F, dim=(-2, -1), keepdim=True)
     return F / torch.clamp(nrm, min=1e-12)

@@ -10,7 +10,8 @@ iteration: g* = (sum I*T + lam) / (sum I*I + lam).
 ``klt_track`` tracks every feature of every camera through every level in
 one launch of the CUDA kernel ``csrc/klt_track.cu`` for CUDA tensors (one
 warp per feature, windows in shared memory, the Gauss-Newton loop on chip,
-each feature leaving it once done); CPU tensors take the plain twin
+each feature leaving it once done; window radii above 7 take the kernel's
+general path); CPU tensors take the plain twin
 ``klt_track_plain``, which cuts its windows with ``extract_windows`` and
 runs the array code below.
 
@@ -31,13 +32,12 @@ from torch.profiler import record_function
 
 from coslam_torch.config import KLTConfig
 from coslam_torch.ops import cuda_lib
-from coslam_torch.ops.patches import extract_windows, frac_shift
+from coslam_torch.ops.patches import clamp_origins, extract_windows, frac_shift
 from coslam_torch.ops.pyramid import MAX_LEVELS, Pyramid
 
 # search margin per level (px): integer displacement handled inside one
 # window without re-extraction
 _MARGIN = 6
-MAX_RADIUS = 7    # csrc/klt_track.cu's register and shared-memory sizing
 
 
 class KLTResult(NamedTuple):
@@ -90,9 +90,8 @@ def _track_level(img_t, img_c, pos_t, q, g, cfg: KLTConfig):
     dev = q.device
 
     # --- template: T [S,S,CN], gradients, fixed Hessian ---
-    lim_t = torch.tensor([w - GT, h - GT], dtype=torch.int32, device=dev)
-    bt = torch.floor(pos_t - r).to(torch.int32) - 1
-    bt = torch.clamp(bt, min=torch.zeros_like(lim_t), max=lim_t)
+    bt = clamp_origins(torch.floor(pos_t - r).to(torch.int32) - 1, w - GT,
+                       h - GT)
     Wt = extract_windows(img_t, bt.reshape(C, N, 2).contiguous(),
                          GT).reshape(GT, GT, CN)
     ft = pos_t - r - 1 - bt.to(f32)
@@ -109,9 +108,8 @@ def _track_level(img_t, img_c, pos_t, q, g, cfg: KLTConfig):
     det = torch.where(torch.abs(det) < 1e-8, torch.full_like(det, 1e-8), det)
 
     # --- target window around the level-start estimate ---
-    lim_c = torch.tensor([w - G, h - G], dtype=torch.int32, device=dev)
-    b = torch.floor(q - r).to(torch.int32) - _MARGIN
-    b = torch.clamp(b, min=torch.zeros_like(lim_c), max=lim_c)
+    b = clamp_origins(torch.floor(q - r).to(torch.int32) - _MARGIN, w - G,
+                      h - G)
     Wc = extract_windows(img_c, b.reshape(C, N, 2).contiguous(),
                          G).reshape(G, G, CN)
     bf = b.to(f32)
@@ -216,9 +214,8 @@ def _klt_track_cuda(pyr_prev: Pyramid, pyr_cur: Pyramid, pos: torch.Tensor,
                     f"[{C}, {H >> lv}, {W >> lv}] on {pos.device}, got "
                     f"{im.dtype} {tuple(im.shape)} on {im.device}")
     r = cfg.window_radius
-    if not 0 <= r <= MAX_RADIUS:
-        raise ValueError(f"klt_track: window_radius {r} is outside the "
-                         f"kernel's 0..{MAX_RADIUS}")
+    if r < 0:
+        raise ValueError(f"klt_track: window_radius {r} is negative")
     G = 2 * r + 2 + 2 * _MARGIN
     if min(H, W) < G:
         raise ValueError(f"klt_track: a {H}x{W} image is smaller than the "

@@ -8,10 +8,12 @@ Two functions run as one CUDA kernel each on CUDA tensors:
 ``extract_ncc_blocks_batched`` (``csrc/ncc_blocks.cu``: every block cut,
 shifted and normalized on chip) and ``ncc_search`` (``csrc/ncc_search.cu``:
 a centre's whole search, window sums, correlation and arg-max, in one
-thread block). CPU tensors take their plain versions,
-``extract_ncc_blocks_batched_plain`` and ``ncc_search_plain``, which cut
-their windows with ``ops/patches.py::extract_windows`` (the window kernel,
-when they are given CUDA tensors) and run the array code below.
+thread block). Each kernel has a tuned path for patch radii up to 7 (and
+search radii up to 20) and a general path for any larger radius. CPU
+tensors take their plain versions, ``extract_ncc_blocks_batched_plain``
+and ``ncc_search_plain``, which cut their windows with
+``ops/patches.py::extract_windows`` (the window kernel, when they are
+given CUDA tensors) and run the array code below.
 
 The JAX package cuts the windows of one image's blocks with bf16 hi/lo
 one-hot matrix products (``extract_windows_onehot``, a TPU formulation
@@ -26,11 +28,9 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from coslam_torch.ops import cuda_lib
-from coslam_torch.ops.patches import extract_windows, frac_shift
+from coslam_torch.ops.patches import clamp_origins, extract_windows, frac_shift
 
 NCC_INVALID = -2.0
-MAX_RADIUS = 7           # patch radius the two kernels take (side <= 15)
-MAX_SEARCH_RADIUS = 20   # csrc/ncc_search.cu's shared-memory sizing
 
 
 def _normalize_blocks(raw, pos, h, w, radius):
@@ -54,10 +54,8 @@ def extract_ncc_blocks_batched_plain(imgs: torch.Tensor, pos: torch.Tensor,
     Returns (blocks [C, N, (2r+1)^2] normalized, valid [C, N])."""
     C, h, w = imgs.shape
     S = 2 * radius + 1
-    lim = torch.tensor([w - S - 1, h - S - 1], dtype=torch.int32,
-                       device=pos.device)
     base = torch.floor(pos - radius).to(torch.int32)
-    basec = torch.clamp(base, min=torch.zeros_like(lim), max=lim)
+    basec = clamp_origins(base, w - S - 1, h - S - 1)
     Wnd = extract_windows(imgs, basec.contiguous(), S + 1)  # [S+1,S+1,C,N]
     f = pos - radius - basec.to(pos.dtype)
     fx = torch.clamp(f[..., 0], 0.0, 1.0)[None, None]
@@ -67,10 +65,9 @@ def extract_ncc_blocks_batched_plain(imgs: torch.Tensor, pos: torch.Tensor,
     return _normalize_blocks(raw, pos, h, w, radius)
 
 
-def _check_radius(name: str, what: str, radius: int, limit: int) -> None:
-    if not 0 <= radius <= limit:
-        raise ValueError(f"{name}: {what} {radius} is outside the kernel's "
-                         f"0..{limit}")
+def _check_radius(name: str, what: str, radius: int) -> None:
+    if radius < 0:
+        raise ValueError(f"{name}: {what} {radius} is negative")
 
 
 def _ncc_blocks_cuda(imgs: torch.Tensor, pos: torch.Tensor, radius: int):
@@ -86,7 +83,7 @@ def _ncc_blocks_cuda(imgs: torch.Tensor, pos: torch.Tensor, radius: int):
                          f"{pos.dtype} {tuple(pos.shape)}")
     if pos.device != imgs.device:
         raise ValueError(f"{name}: imgs and pos on different devices")
-    _check_radius(name, "radius", radius, MAX_RADIUS)
+    _check_radius(name, "radius", radius)
     S = 2 * radius + 1
     if S + 1 > min(H, W):
         raise ValueError(f"{name}: a {H}x{W} image is smaller than the "
@@ -158,10 +155,8 @@ def ncc_search_plain(img: torch.Tensor, centers: torch.Tensor,
     S = 2 * patch_radius + 1
     sr = search_radius
     G = S + 2 * sr
-    lim = torch.tensor([w - G - 1, h - G - 1], dtype=torch.int32,
-                       device=centers.device)
     base = torch.round(centers).to(torch.int32) - (patch_radius + sr)
-    basec = torch.clamp(base, min=torch.zeros_like(lim), max=lim)
+    basec = clamp_origins(base, w - G - 1, h - G - 1)
     Wnd = extract_windows(img[None], basec[None].contiguous(), G)[:, :, 0]
     Wn = Wnd.permute(2, 0, 1)                                  # [N, G, G]
     # dot[n, dy, dx] = <templates[n], window patch at (dy, dx)>
@@ -194,9 +189,8 @@ def _ncc_search_cuda(img: torch.Tensor, centers: torch.Tensor,
             centers.shape[1] != 2:
         raise ValueError(f"ncc_search takes centers [N, 2] float32, got "
                          f"{centers.dtype} {tuple(centers.shape)}")
-    _check_radius("ncc_search", "patch_radius", patch_radius, MAX_RADIUS)
-    _check_radius("ncc_search", "search_radius", search_radius,
-                  MAX_SEARCH_RADIUS)
+    _check_radius("ncc_search", "patch_radius", patch_radius)
+    _check_radius("ncc_search", "search_radius", search_radius)
     N = centers.shape[0]
     S = 2 * patch_radius + 1
     if templates.dtype != torch.float32 or \

@@ -46,6 +46,13 @@ def sample_bilinear(img: torch.Tensor, pts: torch.Tensor):
     return vals, valid
 
 
+def clamp_origins(b: torch.Tensor, x_max: int, y_max: int) -> torch.Tensor:
+    """Window origins [..., 2] clamped to [0, x_max] x [0, y_max], the
+    limits as scalars (no tensor is copied to the device)."""
+    return torch.stack([torch.clamp(b[..., 0], 0, x_max),
+                        torch.clamp(b[..., 1], 0, y_max)], -1)
+
+
 def patch_offsets(radius: int, dtype=torch.float32, device=None):
     """[(2r+1)^2, 2] (dx, dy) offsets, row-major."""
     r = radius

@@ -5,8 +5,15 @@ camera batch (the port of ``coslam_tpu/slam/fused.py``, single-device
 path). ``pack_stats`` flattens the per-frame statistics into one vector,
 so a tracked frame costs one device-to-host copy.
 
+``frame_steps_scan`` runs a chunk of frames (the reference's
+``lax.scan``: here a Python loop, enqueued with no host wait) and
+``frame_steps_chunk`` appends the periodic host-decision scan to the
+chunk's stats rows, so a chunk costs one copy too.
+
 The JAX step donates its state buffers; here each step returns new
-tensors and the engine simply drops the old state.
+tensors and the engine simply drops the old state. No step waits on the
+host: every constant is a Python scalar, a device fill or a tensor kept on
+the device.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from coslam_torch.ops.pyramid import build_pyramid
 from coslam_torch.slam import steps
 from coslam_torch.slam.classify import (classify_map_points,
                                         detect_dynamic_features)
+from coslam_torch.slam.grouping import host_scan_device
 from coslam_torch.slam.state import PT_DYNAMIC, ST_ALIVE, SlamState
 
 
@@ -115,3 +123,45 @@ def unpack_stats(v, C: int, D: int) -> FrameStats:
         n_static=take(1)[0], n_dynamic=take(1)[0], n_mapped=take(C),
         R=take(9 * C, (C, 3, 3)), t=take(3 * C, (C, 3)),
         dyn_ids=take(D).astype(int), dyn_xyz=take(3 * D, (D, 3)))
+
+
+def frame_step_packed(state: SlamState, pyr_prev, imgs_cur: torch.Tensor,
+                      K: torch.Tensor, kc: torch.Tensor, cfg: SlamConfig,
+                      large_err: bool = False):
+    """``frame_step`` with its stats packed into one vector (the engine's
+    per-frame path). Returns (state', pyr_cur, packed stats)."""
+    state, pyr_cur, fs = frame_step(state, pyr_prev, imgs_cur, K, kc, cfg,
+                                    large_err=large_err)
+    return state, pyr_cur, pack_stats(fs)
+
+
+def frame_steps_scan(state: SlamState, pyr_prev, imgs_seq: torch.Tensor,
+                     K: torch.Tensor, kc: torch.Tensor, cfg: SlamConfig,
+                     large_err: bool = False):
+    """A chunk of frames, imgs_seq [F, C, H, W], through ``frame_step`` one
+    after the other; the host cadence does not run inside the chunk.
+    Returns (state', pyr_last, packed stats [F, S]: one ``pack_stats`` row
+    per frame)."""
+    rows = []
+    for imgs in imgs_seq:
+        state, pyr_prev, fs = frame_step(state, pyr_prev, imgs, K, kc, cfg,
+                                         large_err=large_err)
+        rows.append(pack_stats(fs))
+    return state, pyr_prev, torch.stack(rows)
+
+
+def frame_steps_chunk(state: SlamState, pyr_prev, imgs_seq: torch.Tensor,
+                      K: torch.Tensor, kc: torch.Tensor, cfg: SlamConfig,
+                      large_err: bool = False):
+    """``frame_steps_scan`` and the periodic host-decision scan
+    (``grouping.host_scan_device`` after the last frame) in ONE flat vector,
+    the chunked engine's one device-to-host copy per chunk. Returns
+    (state', pyr_last, flat [F * S + C * (3C + 2)]: the stats rows row-major,
+    then the scan block)."""
+    state, pyr_prev, stats = frame_steps_scan(state, pyr_prev, imgs_seq, K,
+                                              kc, cfg, large_err=large_err)
+    scan = host_scan_device(state, K, cfg.image_height, cfg.image_width,
+                            cfg.p.loop_dormant_age)
+    flat = torch.cat([stats.reshape(-1),
+                      scan.reshape(-1).to(torch.float32)])
+    return state, pyr_prev, flat

@@ -2,27 +2,50 @@
 camera or several).
 
 The per-frame hot path is ``fused.frame_step`` over statically shaped
-state on the device; the host reads one packed statistics vector per
-tracked frame and makes the cadence decisions: the joint multi-camera
-pose when a camera's static support collapses, the dynamic-point log,
-camera grouping (with split hysteresis), group merges and loop closures
-on the grouping tick (with their settle windows and failed-attempt
-backoffs), inter-camera mapping and registration, keyframes, windowed BA
-(synchronous), periodic duplicate unification. Frame 0 seeds corners;
-several cameras bootstrap from the wide-baseline map init at frame 0
-(retried every frame until it succeeds), one camera from the two-frame
-E-matrix once ``init_frames`` frames are tracked. Trajectories are
-chain-corrected to the final keyframe poses at export.
+state on the device, enqueued with no host wait; the host reads one
+packed statistics vector per tracked frame and makes the cadence
+decisions: the joint multi-camera pose when a camera's static support
+collapses, the dynamic-point log, camera grouping (with split
+hysteresis), group merges and loop closures on the grouping tick (with
+their settle windows and failed-attempt backoffs), inter-camera mapping
+and registration, keyframes, windowed BA, periodic duplicate
+unification. Frame 0 seeds corners; several cameras bootstrap from the
+wide-baseline map init at frame 0 (retried every frame until it
+succeeds), one camera from the two-frame E-matrix once ``init_frames``
+frames are tracked. Trajectories are chain-corrected to the final
+keyframe poses at export.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): the chunked, overlapped, async-BA and non-fused engine modes
-(A15), and multi-device meshes (A18). BA runs synchronously, so a merge
-has no in-flight BA to cancel.
+The engine modes of the reference:
+- ``chunk > 1``: ``chunk`` tracked frames go through
+  ``fused.frame_steps_chunk`` and their stats rows (with the grouping,
+  merge and loop prefilter scan) come back in one copy; the cadence runs
+  once per chunk, on the last frame's stats. A partial tail runs through
+  the single-frame path.
+- ``overlap``: the stats copy of frame f (or chunk k) is started without a
+  wait (on a card: a ``non_blocking`` copy into one of two pinned buffers
+  and a CUDA event) and read one frame (chunk) later, so the cadence acts
+  on one-frame-old stats and the host never waits a round trip.
+- ``async_ba``: the windowed BA is dispatched and applied a few frames
+  later (on a card its solve runs on a side CUDA stream; ``_poll_ba``
+  applies it once the solve's event has completed, or after ``max_defer``
+  frames), with the slot-generation guard of
+  ``steps.apply_ba_table_results``; a committed merge or loop closure
+  cancels a solve in flight (the reference's BA thread and bCancelBA).
+  Merge and loop polish BAs stay synchronous.
+- ``use_fused=False``: the step's stages as separate calls, the cadence,
+  then the lifecycle update.
+- ``profile``: ``timing`` accumulates wall seconds per stage (``_tick``),
+  synchronizing the card first.
+
+Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
+multi-device meshes and BA on another card (A18).
 """
 
 from __future__ import annotations
 
 import math
+import time
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -35,7 +58,10 @@ from coslam_torch.geometry.triangulate import triangulation_cov
 from coslam_torch.ops.corners import detect_corners
 from coslam_torch.ops.pyramid import build_pyramid
 from coslam_torch.slam import steps
-from coslam_torch.slam.fused import frame_step, pack_stats, unpack_stats
+from coslam_torch.slam.classify import (classify_map_points,
+                                        detect_dynamic_features)
+from coslam_torch.slam.fused import (frame_step, frame_steps_chunk,
+                                     pack_stats, unpack_stats)
 from coslam_torch.slam.grouping import (camera_grouping,
                                         group_camera_tuples, host_scan_device)
 from coslam_torch.slam.initmap import init_map_multicam
@@ -46,14 +72,15 @@ from coslam_torch.slam.loop import close_loop, find_loop_candidates
 from coslam_torch.slam.merge import (MergeCandidate, fuse_close_points,
                                      fuse_duplicate_points, merge_candidates,
                                      merge_groups)
-from coslam_torch.slam.state import (PT_STATIC, ST_ALIVE, SlamState,
-                                     init_state)
+from coslam_torch.slam.state import (PT_DYNAMIC, PT_STATIC, ST_ALIVE,
+                                     SlamState, init_state)
 from coslam_torch.solvers.ba import bundle_adjust_table
 from coslam_torch.solvers.pose_graph import (chain_graph,
                                              solve_chain_segments,
                                              solve_rotations,
                                              solve_translations)
-from coslam_torch.util import nanmedian, resolve_device, set_drop, to_host
+from coslam_torch.util import (nanmedian, resolve_device, set_drop,
+                               to_device, to_host)
 
 # cadence (frames) of the grouping tick, on which the merge and loop
 # checks run
@@ -68,6 +95,52 @@ def _pack_rt(R, t):
     return torch.cat([R, t[..., None]], dim=-1)
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    def index(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.cuda.current_device()
+        return d.index
+    return a.type == b.type and index(a) == index(b)
+
+
+class HostCopies:
+    """Device-to-host copies of packed stats that the host reads later
+    (overlap mode). On a card a vector is copied with ``non_blocking=True``
+    into one of two pinned buffers of its size, taken in turns, and a CUDA
+    event is recorded behind the copy; ``read`` waits on that event only.
+    The engine reads each copy before it starts the second one after it,
+    so a copy in flight never lands in a buffer still to be read. On the
+    CPU the copy is a clone."""
+
+    def __init__(self):
+        self._bufs: dict = {}
+        self._turn: dict = {}
+
+    def start(self, v: torch.Tensor):
+        """Start copying ``v``; returns the pending copy for ``read``."""
+        if not v.is_cuda:
+            return v.clone(), None
+        n = v.numel()
+        i = self._turn.get(n, 0)
+        self._turn[n] = 1 - i
+        buf = self._bufs.get((n, i))
+        if buf is None:
+            buf = self._bufs[(n, i)] = torch.empty(n, dtype=v.dtype,
+                                                   pin_memory=True)
+        buf.copy_(v.reshape(-1), non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return buf, done
+
+    @staticmethod
+    def read(pending) -> np.ndarray:
+        """The copied vector as a numpy array of its own, once it landed."""
+        buf, done = pending
+        if done is not None:
+            done.synchronize()
+        return buf.numpy().copy()
+
+
 class CoSlamEngine:
     """One engine = C synchronized cameras (the CoSLAM object equivalent).
 
@@ -78,20 +151,32 @@ class CoSlamEngine:
         Rs, ts = eng.trajectory(c)                # corrected, camera c
 
     ``device`` defaults to CUDA and raises when no card is present; pass
-    ``device="cpu"`` to run the plain PyTorch path on the CPU."""
+    ``device="cpu"`` to run the plain PyTorch path on the CPU. The modes
+    (``chunk``, ``overlap``, ``async_ba``, ``use_fused``, ``profile``) are
+    the reference's; see the module docstring. ``ba_device`` may only name
+    the engine's own device (another card is ROADMAP A18)."""
 
     def __init__(self, cfg: SlamConfig, K, kc, device=None,
-                 use_fused: bool = True, async_ba: bool = False,
+                 profile: bool = False, use_fused: bool = True,
+                 async_ba: bool = False, ba_device=None,
                  overlap: bool = False, chunk: int = 1, mesh=None):
-        if chunk > 1 or overlap or async_ba or not use_fused:
-            raise NotImplementedError(
-                "the chunked, overlapped, async-BA and non-fused engine "
-                "modes are not ported yet: ROADMAP.md item A15")
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device meshes are not ported yet: ROADMAP.md item A18")
         self.cfg = cfg
         self.device = resolve_device(device)
+        if ba_device is not None and \
+                not _same_device(torch.device(ba_device), self.device):
+            raise NotImplementedError(
+                "BA on another device than the engine's is not ported yet: "
+                "ROADMAP.md item A18")
+        self.profile = profile
+        self.use_fused = use_fused
+        self.async_ba = async_ba
+        self.ba_device = ba_device
+        self.overlap = overlap
+        self.chunk = max(1, int(chunk))
+        self.timing: dict[str, float] = {}
         C = cfg.num_cameras
         K = torch.as_tensor(np.asarray(K, np.float32))
         if tuple(K.shape) != (C, 3, 3):
@@ -133,39 +218,120 @@ class CoSlamEngine:
         self._pose_host_cache = None
         self._pose_prefetch = None   # packed poses fetched right after BA
         self._kf_prefetch = None
+        # overlap: (frame, pending copy) of the stats read next frame
+        self._copies = HostCopies()
+        self._pending_fs = None
+        self._flushing = False       # inside _flush_overlap
+        # chunk mode: buffered frames, and (overlap) the chunk whose stats
+        # are read after the next chunk is enqueued: (f0, n, pending copy)
+        self._chunk_buf: list = []
+        self._chunk_pending = None
+        # async BA: the solve in flight, its side stream, and what became
+        # of each dispatch: applied once its event completed ("ready"),
+        # after max_defer frames ("deferred"), before a keyframe, another
+        # BA or on request ("flushed"), or dropped by a merge or loop
+        # closure ("cancelled")
+        self._pending_ba: Optional[dict] = None
+        self._ba_stream = None
+        self.ba_async = dict(dispatched=0, ready=0, deferred=0, flushed=0,
+                             cancelled=0)
 
     # ------------------------------------------------------------------
+    @property
+    def img_hw(self):
+        return (self.cfg.image_height, self.cfg.image_width)
+
+    def _tick(self, name: str, t0: float) -> float:
+        """Accumulate the wall time since ``t0`` under ``name`` (the
+        reference's per-stage clock). With ``profile=True`` the card is
+        synchronized first, so a stage's time is its execution, not its
+        enqueueing."""
+        if self.profile and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter()
+        self.timing[name] = self.timing.get(name, 0.0) + (t1 - t0)
+        return t1
+
     def process_frame(self, images) -> dict:
         """Feed one frame: images [C, H, W] (numpy or tensor, float32 or
-        uint8, 0..255). Returns the frame's statistics."""
+        uint8, 0..255). Returns the frame's statistics: in chunk mode a
+        buffered frame returns {"frame", "buffered": True} and the chunk's
+        last frame the cadence's statistics; in overlap mode the statistics
+        are those of the previous tracked frame."""
         cfg = self.cfg
+        if self.chunk > 1 and self.bootstrapped and self.use_fused \
+                and self.frame > 0:
+            self._chunk_buf.append(images)
+            if len(self._chunk_buf) < self.chunk:
+                return {"frame": self.frame + len(self._chunk_buf) - 1,
+                        "buffered": True}
+            return self._process_chunk()
+        t0 = time.perf_counter()
         self._pose_host_cache = None   # state.R/t will change this frame
         self._pose_prefetch = None
         self._kf_prefetch = None
-        imgs = torch.as_tensor(images).to(self.device).to(torch.float32)
-        if self.bootstrapped and self.frame > 0:
+        imgs = to_device(images, self.device).to(torch.float32)
+        t0 = self._tick("upload", t0)
+        if self.bootstrapped and self.use_fused and self.frame > 0:
             self.state, pyr, fs = frame_step(
                 self.state, self.pyr_prev, imgs, self.K, self.kc, cfg,
                 large_err=self.frame < self._large_err_until)
+            fsv = pack_stats(fs)
+            t0 = self._tick("core_fused", t0)
             stats = {"frame": self.frame}
-            stats.update(self._host_cadence(pyr, pack_stats(fs)))
-        else:
-            pyr = build_pyramid(imgs, cfg.klt.n_levels)
-            stats = {"frame": self.frame}
-            if self.frame == 0:
-                self._first_frame(pyr)
-                if cfg.num_cameras > 1:
-                    stats["bootstrap"] = self._bootstrap_multicam(pyr)
+            log_entry = True
+            if self.overlap:
+                # this frame's stats start copying now and are read next
+                # frame: the cadence acts on one-frame-old stats
+                pending = self._copies.start(fsv)
+                t0 = self._tick("copy_async", t0)
+                prev = self._pending_fs
+                self._pending_fs = (self.frame, pending)
+                if prev is not None:
+                    pframe, pv = prev
+                    stats["frame"] = pframe
+                    stats.update(self._host_cadence(pyr, pv, frame=pframe))
+                    t0 = self._tick("cadence_total", t0)
+                    self._record_pose()
+                    t0 = self._tick("record_pose", t0)
+                else:
+                    # transition frame: its stats are read (and logged)
+                    # next frame
+                    log_entry = False
             else:
-                self.state = self.state._replace(
-                    tracks=steps.advance_tracks(
-                        self.pyr_prev, pyr, self.state.tracks, self.K,
-                        self.kc, self.state.frame + 1, cfg),
-                    frame=self.state.frame + 1)
+                stats.update(self._host_cadence(pyr, fsv))
+                self._record_pose()
+            self.pyr_prev = pyr
+            self.group_hist.append(tuple(self.group_id.tolist()))
+            self.frame += 1
+            stats.setdefault("n_inliers", np.zeros(cfg.num_cameras))
+            if log_entry:
+                self.stats_log.append(stats)
+            return stats
+        pyr = build_pyramid(imgs, cfg.klt.n_levels)
+        t0 = self._tick("pyramid", t0)
+        stats = {"frame": self.frame}
+        if self.frame == 0:
+            self._first_frame(pyr)
+            if cfg.num_cameras > 1:
+                stats["bootstrap"] = self._bootstrap_multicam(pyr)
+        else:
+            t1 = time.perf_counter()
+            self.state = self.state._replace(
+                tracks=steps.advance_tracks(
+                    self.pyr_prev, pyr, self.state.tracks, self.K, self.kc,
+                    self.state.frame + 1, cfg),
+                frame=self.state.frame + 1)
+            self._tick("tracking", t1)
+            if not self.bootstrapped:
+                t1 = time.perf_counter()
                 if cfg.num_cameras > 1:
                     stats["bootstrap"] = self._bootstrap_multicam(pyr)
                 elif self.frame >= cfg.p.init_frames:
                     stats["bootstrap"] = self._bootstrap(pyr)
+                self._tick("bootstrap", t1)
+            else:
+                stats.update(self._tracked_frame(pyr))
         self._record_pose()
         self.pyr_prev = pyr
         self.group_hist.append(tuple(self.group_id.tolist()))
@@ -173,6 +339,137 @@ class CoSlamEngine:
         stats.setdefault("n_inliers", np.zeros(cfg.num_cameras))
         self.stats_log.append(stats)
         return stats
+
+    # ------------------------------------------------------------------
+    def _process_chunk(self) -> dict:
+        """The buffered frames through ONE ``frame_steps_chunk`` call, then
+        the cadence once at the boundary. Per-frame poses and dynamic
+        snapshots come from the packed stats rows: the chunk is enqueued
+        with no host wait until its one stats copy."""
+        t0 = time.perf_counter()
+        buf, self._chunk_buf = self._chunk_buf, []
+        n = len(buf)
+        self._pose_host_cache = None
+        self._pose_prefetch = None
+        self._kf_prefetch = None
+        imgs = torch.stack([to_device(f, self.device) for f in buf]).to(
+            torch.float32)
+        t0 = self._tick("upload", t0)
+        self.state, pyr, flat = frame_steps_chunk(
+            self.state, self.pyr_prev, imgs, self.K, self.kc, self.cfg,
+            large_err=self.frame < self._large_err_until)
+        self.pyr_prev = pyr
+        t0 = self._tick("core_chunk", t0)
+        if self.overlap:
+            # this chunk's stats start copying; the previous chunk's, whose
+            # copy rode behind this chunk's work, are read now
+            pending = self._chunk_pending
+            self._chunk_pending = (self.frame, n, self._copies.start(flat))
+            self.frame += n
+            t0 = self._tick("copy_async", t0)
+            if pending is None:
+                return {"frame": self.frame - 1, "buffered": True}
+            out = self._consume_chunk_stats(*pending)
+            self._tick("cadence_total", t0)
+            return out
+        flat = flat.cpu().numpy()                   # the one round trip
+        t0 = self._tick("stats_wait", t0)
+        return self._ingest_chunk_rows(self.frame, n, flat, t0=t0)
+
+    def _consume_chunk_stats(self, f0: int, n: int, pending) -> dict:
+        """Overlap mode: logs and cadence of a chunk the device has already
+        moved past. The bookkeeping runs with the chunk's frame numbers; the
+        cadence's actions apply to the current, newer state."""
+        saved = self.frame
+        self.frame = f0
+        try:
+            return self._ingest_chunk_rows(f0, n, HostCopies.read(pending))
+        finally:
+            self.frame = saved
+
+    def _ingest_chunk_rows(self, f0: int, n: int, flat: np.ndarray,
+                           t0: Optional[float] = None) -> dict:
+        """Unpack a chunk's flat stats: per-frame poses, logs and dynamic
+        snapshots, then the cadence on the last frame's stats, with the
+        chunk's scan block as the host-scan cache."""
+        C = self.cfg.num_cameras
+        pyr = self.pyr_prev
+        if t0 is None:
+            t0 = time.perf_counter()
+        scan_len = C * (3 * C + 2)
+        rows = flat[:len(flat) - scan_len].reshape(n, -1)
+        scan = flat[len(flat) - scan_len:].reshape(C, 3 * C + 2)
+        D = self.state.kfs.dyn_xyz.shape[1]
+        fs_last = None
+        for i in range(n):
+            fs = unpack_stats(rows[i], C, D)
+            fs_last = fs
+            self._pose_host_cache = (fs.R.copy(), fs.t.copy())
+            self._record_pose()
+            # the last row's snapshot is logged by the cadence below
+            if C > 1 and i < n - 1 and int(fs.n_dynamic) > 0:
+                sel = fs.dyn_ids >= 0
+                if sel.any():
+                    self.dyn_log.append((f0 + i, fs.dyn_ids[sel],
+                                         fs.dyn_xyz[sel]))
+            entry = {"frame": f0 + i, "n_inliers": fs.n_inliers,
+                     "coverage": fs.coverage, "med_err": fs.med_err,
+                     "med_depth": fs.med_depth,
+                     "n_new_points": int(fs.n_new_points)}
+            if C > 1:
+                entry["n_static"] = int(fs.n_static)
+                entry["n_dynamic"] = int(fs.n_dynamic)
+            self.stats_log.append(entry)
+            self.group_hist.append(tuple(self.group_id.tolist()))
+        self.frame = f0 + n - 1
+        self._poll_ba()
+        self._scan_cache = (scan[:, :C], scan[:, C:2 * C],
+                            scan[:, 2 * C:3 * C], scan[:, 3 * C],
+                            scan[:, 3 * C + 1])
+        self._scan_frame = self.frame
+        cstats = self._shared_cadence(
+            pyr, fs_last, n_mapped=fs_last.n_mapped,
+            n_new=int(fs_last.n_new_points),
+            dyn=(fs_last.dyn_ids, fs_last.dyn_xyz),
+            n_static=int(fs_last.n_static),
+            n_dynamic=int(fs_last.n_dynamic), frame=self.frame)
+        self.stats_log[-1].update(cstats)
+        self.frame = f0 + n
+        self._tick("cadence_total", t0)
+        return self.stats_log[-1]
+
+    def _flush_chunk(self):
+        """Read the overlap-pending chunk's stats, then run any buffered
+        frames of a partial chunk through the single-frame path."""
+        if self._chunk_pending is not None:
+            pending, self._chunk_pending = self._chunk_pending, None
+            self._consume_chunk_stats(*pending)
+        if not self._chunk_buf:
+            return
+        buf, self._chunk_buf = self._chunk_buf, []
+        saved = self.chunk
+        self.chunk = 1
+        try:
+            for f in buf:
+                self.process_frame(f)
+        finally:
+            self.chunk = saved
+
+    def _flush_overlap(self):
+        """Read the pending overlapped stats: the last frame's cadence and
+        its pose, so the trajectory covers every processed frame."""
+        if not self.overlap or self._pending_fs is None:
+            return
+        pframe, pv = self._pending_fs
+        self._pending_fs = None
+        stats = {"frame": pframe}
+        self._flushing = True
+        try:
+            stats.update(self._host_cadence(self.pyr_prev, pv, frame=pframe))
+        finally:
+            self._flushing = False
+        self._record_pose()
+        self.stats_log.append(stats)
 
     # ------------------------------------------------------------------
     def _first_frame(self, pyr):
@@ -317,17 +614,74 @@ class CoSlamEngine:
         return state
 
     # ------------------------------------------------------------------
-    def _host_cadence(self, pyr, fsv: torch.Tensor) -> dict:
+    def _host_cadence(self, pyr, fsv, frame: Optional[int] = None) -> dict:
         """Tracked-frame cadence: ONE device-to-host copy (the packed stats,
-        post-step poses included), then the shared cadence."""
-        fs = unpack_stats(fsv.cpu(), self.cfg.num_cameras,
+        post-step poses included), then the shared cadence. ``fsv`` is the
+        packed stats tensor, or (overlap mode) a copy started a frame
+        earlier; ``frame`` stamps the log entries (one frame back in overlap
+        mode)."""
+        t0 = time.perf_counter()
+        self._poll_ba()
+        t0 = self._tick("poll_ba", t0)
+        v = HostCopies.read(fsv) if isinstance(fsv, tuple) else \
+            fsv.cpu().numpy()
+        fs = unpack_stats(v, self.cfg.num_cameras,
                           self.state.kfs.dyn_xyz.shape[1])
+        self._tick("stats_wait", t0)
         self._pose_host_cache = (fs.R.copy(), fs.t.copy())
         # the dynamic snapshot rides the stats copy
         return self._shared_cadence(
             pyr, fs, n_mapped=fs.n_mapped, n_new=int(fs.n_new_points),
-            dyn=(fs.dyn_ids, fs.dyn_xyz), n_static=int(fs.n_static), n_dynamic=int(fs.n_dynamic),
-            frame=self.frame)
+            dyn=(fs.dyn_ids, fs.dyn_xyz), n_static=int(fs.n_static),
+            n_dynamic=int(fs.n_dynamic),
+            frame=self.frame if frame is None else frame)
+
+    def _tracked_frame(self, pyr) -> dict:
+        """The non-fused path (``use_fused=False``): the fused step's
+        stages as separate calls after ``advance_tracks`` (pose update, pose
+        history, classification with several cameras, new map points), the
+        shared cadence, and the lifecycle update after the cadence (the
+        fused step runs it before), as the reference orders them."""
+        cfg = self.cfg
+        C = cfg.num_cameras
+        t0 = time.perf_counter()
+        self._poll_ba()
+        out = steps.pose_update(self.state, self.K, self.kc, self.img_hw,
+                                cfg,
+                                large_err=self.frame < self._large_err_until)
+        self.state = self.state._replace(
+            R=out.R, t=out.t, tracks=out.tracks, mappts=out.mappts)
+        self.state = steps.push_pose_history(self.state)
+        t0 = self._tick("pose_update", t0)
+        n_static = n_dynamic = torch.zeros((), dtype=torch.int32,
+                                           device=self.device)
+        if C > 1:
+            self.state = detect_dynamic_features(self.state, self.K, cfg)
+            cls = classify_map_points(self.state, self.K, cfg)
+            self.state = self.state._replace(mappts=cls.mappts,
+                                             tracks=cls.tracks)
+            n_static, n_dynamic = cls.n_static, cls.n_dynamic
+        t0 = self._tick("classify", t0)
+        mappts, tracks, n_new = steps.new_map_points(
+            self.state, pyr, self.K, self.kc, cfg)
+        self.state = self.state._replace(mappts=mappts, tracks=tracks)
+        self._tick("new_map_points", t0)
+        n_mapped = torch.sum(tracks.valid & (tracks.mpt >= 0), dim=1)
+        n_inl, cover, med_err, med_depth, n_mapped, n_new, n_static, \
+            n_dynamic = to_host(out.n_inliers, out.coverage, out.med_err,
+                                out.med_depth, n_mapped, n_new, n_static,
+                                n_dynamic)
+        host = SimpleNamespace(n_inliers=n_inl, coverage=cover,
+                               med_err=med_err, med_depth=med_depth)
+        stats = self._shared_cadence(pyr, host, n_mapped=n_mapped,
+                                     n_new=int(n_new), dyn=None,
+                                     n_static=int(n_static),
+                                     n_dynamic=int(n_dynamic),
+                                     frame=self.frame)
+        self.state = self.state._replace(
+            mappts=steps.lifecycle_update(self.state.mappts,
+                                          self.state.frame, cfg))
+        return stats
 
     def _shared_cadence(self, pyr, out, n_mapped: np.ndarray, n_new: int,
                         dyn, n_static: int, n_dynamic: int,
@@ -336,10 +690,14 @@ class CoSlamEngine:
         dynamic-point log, grouping (and where groups could merge, the
         merge check), the loop-closure check, inter-camera mapping and
         registration, keyframes + BA, duplicate unification. ``dyn`` is the
-        (ids, xyz) snapshot of the dynamic points from the stats copy."""
+        (ids, xyz) snapshot of the dynamic points from the stats copy (None:
+        pulled from the device when there are dynamic points); ``frame``
+        stamps the log entries (one frame behind ``self.frame`` in overlap
+        mode)."""
         cfg = self.cfg
         p = cfg.p
         C = cfg.num_cameras
+        t0 = time.perf_counter()
         n_inl = np.asarray(out.n_inliers)
         cover = np.asarray(out.coverage)
         joint = False
@@ -360,22 +718,29 @@ class CoSlamEngine:
                 self._pose_prefetch = None
                 joint = True
             if n_dynamic > 0:
-                ids, xyz = dyn
-                sel = ids >= 0
-                if sel.any():
-                    self.dyn_log.append((frame, ids[sel], xyz[sel]))
+                if dyn is not None:
+                    ids, xyz = dyn
+                    sel = ids >= 0
+                    if sel.any():
+                        self.dyn_log.append((frame, ids[sel], xyz[sel]))
+                else:
+                    self._store_dynamic_snapshot(frame)
             # no re-grouping while shared observations re-form after a merge
             if grouping_due and self._settled():
                 self._update_grouping()
+            t0 = self._tick("cad_grouping", t0)
             # group merge (mergeCamGroups) on the grouping tick, so it
             # never acts on stale group ids
             if (len(np.unique(self.group_id)) > 1 and grouping_due
                     and self.frame - self._last_merge
                     >= p.merge_min_interval):
                 self._merge_tick(pyr)
+            t0 = self._tick("cad_merge", t0)
         if grouping_due:
             self._try_loop_closure(pyr)
+        t0 = self._tick("cad_loop", t0)
         n_inter = self._intercam_cadence(pyr, n_mapped, n_inl)
+        t0 = self._tick("cad_intercam", t0)
         stats = {
             "n_inliers": n_inl,
             "coverage": cover,
@@ -388,14 +753,26 @@ class CoSlamEngine:
         if C > 1:
             stats["n_static"] = n_static
             stats["n_dynamic"] = n_dynamic
-        if self._keyframe_ready(out):
+        kf_ready = self._keyframe_ready(out)
+        t0 = self._tick("cad_kfready", t0)
+        if kf_ready:
+            # a keyframe snapshots BA-consistent poses: an in-flight BA is
+            # applied first
+            self._apply_pending_ba()
             self.state = self.state._replace(
                 kfs=steps.add_keyframe(self.state))
-            self.kf_frames.append(self.frame)
+            # the device's frame: while _flush_overlap runs, self.frame is
+            # one past the last processed frame
+            self.kf_frames.append(self.frame - 1 if self._flushing
+                                  else self.frame)
             self._kf_inliers = n_inl.copy()
             self._kf_pose_host = self._pose_host()
+            t0 = self._tick("cad_addkf", t0)
             if len(self.kf_frames) % cfg.p.ba_cadence == 0:
                 self._run_ba()
+                # a solve that already finished is applied this frame
+                self._poll_ba()
+                t0 = self._tick("ba", t0)
             stats["keyframe"] = True
         # periodic duplicate unification (every 50th frame)
         if self.frame - self._last_fuse >= 50:
@@ -420,6 +797,7 @@ class CoSlamEngine:
         budget_low = int(n_mapped.sum()) < p.n_max_map_pts
         decrease = bool(np.any(n_inl < 0.8 * np.maximum(self._kf_inliers, 1)))
         decrease = decrease and since >= max(1, p.intercam_map_interval // 2)
+        t0 = time.perf_counter()
         if (since >= p.intercam_map_interval and budget_low) or decrease:
             for cams in group_camera_tuples(self.group_id):
                 mp, tr, nn = intercam_map_group(self.state, pyr, self.K,
@@ -427,10 +805,12 @@ class CoSlamEngine:
                 self.state = self.state._replace(mappts=mp, tracks=tr)
                 n_inter += int(nn)
             self._last_intercam = self.frame
+        t0 = self._tick("cad_icmap", t0)
         if self.frame - self._last_register >= p.intercam_map_interval:
             self._last_register = self.frame
             self.state, _ = register_map_points(
                 self.state, pyr, self.K, self.cfg, max_age=p.num_act_frames)
+        self._tick("cad_register", t0)
         return n_inter
 
     def _host_scan(self):
@@ -511,8 +891,7 @@ class CoSlamEngine:
 
     def _set_groups(self, gid: np.ndarray):
         self.group_id = gid
-        self.state = self.state._replace(
-            group_id=torch.as_tensor(gid, device=self.device))
+        self.state = self.state._replace(group_id=to_device(gid, self.device))
 
     def _poses_changed(self):
         """Drop the host copies of the live and keyframe poses."""
@@ -527,7 +906,7 @@ class CoSlamEngine:
         self.state = self.state._replace(kfs=steps.add_keyframe(self.state))
         self.kf_frames.append(self.frame)
         self._kf_pose_host = None
-        self._run_ba(window=window)
+        self._run_ba(sync=True, window=window)
 
     def _try_merge(self, pyr):
         """mergeCamGroups: bridge the best candidate pair; on a realigning
@@ -582,6 +961,9 @@ class CoSlamEngine:
             if self.frame - f_sep > 2 * p.keyframe_min_interval:
                 self._keyframe_ba(p.merge_ba_window)
             return
+        # bCancelBA: a BA solved against the pre-merge geometry must not
+        # write back over the realigned state
+        self._cancel_pending_ba()
         self._large_err_until = self.frame + SETTLE_FRAMES
         self.state = res.state
         # Gauss-Newton on the bridge: a thin match set leaves a bas-relief
@@ -641,6 +1023,8 @@ class CoSlamEngine:
                 4 * GROUPING_INTERVAL)
             return
         self._loop_backoff = GROUPING_INTERVAL
+        # the poses were rewritten: an in-flight BA is dropped
+        self._cancel_pending_ba()
         self.state = res.state
         self._poses_changed()
         self._last_closure = self.frame
@@ -679,21 +1063,106 @@ class CoSlamEngine:
         return bool(decrease or np.any(trans > p.keyframe_trans_ratio)
                     or np.any(ang > p.keyframe_angle_deg))
 
-    def _run_ba(self, window: Optional[int] = None):
-        """Synchronous windowed BA over the dense table, then write-back;
-        ``window`` widens the keyframe window (merge- and loop-time BA)."""
+    def _run_ba(self, sync: bool = False, window: Optional[int] = None):
+        """Windowed BA over the dense table. With ``async_ba`` the solve is
+        dispatched and applied later (``_poll_ba``), unless ``sync`` (the
+        merge and loop polish BAs: the realigned state must not run
+        unpolished while a result is in flight); otherwise it is applied at
+        once. ``window`` widens the keyframe window (merge- and loop-time
+        BA). Never two BAs in flight: a pending one is applied first."""
         cfg = self.cfg
+        if self._pending_ba is not None:
+            self._apply_pending_ba()
         prob, ring, kf_ok = steps.build_ba_table(self.state, self.K, cfg,
                                                  window=window)
-        res = bundle_adjust_table(prob, max_err=cfg.p.max_err,
-                                  max_iter=cfg.p.ba_max_iter,
-                                  inner_iter=cfg.p.ba_inner_iter)
-        self.state = steps.apply_ba_table_results(self.state, res, ring,
-                                                  kf_ok, cfg)
         self.ba_runs += 1
+        if self.async_ba and not sync:
+            self._pending_ba = self._dispatch_ba(prob, ring, kf_ok)
+            return
+        self.state = steps.apply_ba_table_results(
+            self.state, self._solve_ba(prob), ring, kf_ok, cfg)
         self._pose_host_cache = None
         self._kf_pose_host = None
         self._prefetch_poses()
+
+    def _solve_ba(self, prob):
+        p = self.cfg.p
+        return bundle_adjust_table(prob, max_err=p.max_err,
+                                   max_iter=p.ba_max_iter,
+                                   inner_iter=p.ba_inner_iter)
+
+    def _dispatch_ba(self, prob, ring, kf_ok) -> dict:
+        """Start an asynchronous solve. On a card it runs on a side stream
+        that first waits for the main stream's work so far (the problem's
+        tables); the problem's tensors are marked as used there and the
+        result's as used on the main stream, so the caching allocator
+        reuses neither too early, and an event marks the solve's end. The
+        solve has no host sync, so the host goes on tracking while it runs;
+        the problem's tables are copies (indexing and concatenation), and
+        no step writes into a tensor in place, so tracking changes nothing
+        the solve reads. ``gen0`` keeps the slots' generations for the
+        write-back guard."""
+        gen0 = self.state.mappts.gen.clone()
+        done = None
+        if self.device.type == "cuda":
+            main = torch.cuda.current_stream(self.device)
+            if self._ba_stream is None:
+                self._ba_stream = torch.cuda.Stream(self.device)
+            side = self._ba_stream
+            tables_ready = torch.cuda.Event()
+            tables_ready.record(main)
+            side.wait_event(tables_ready)
+            with torch.cuda.stream(side):
+                res = self._solve_ba(prob)
+                done = torch.cuda.Event()
+                done.record(side)
+            for x in prob:
+                x.record_stream(side)
+            for x in res:
+                x.record_stream(main)
+        else:
+            res = self._solve_ba(prob)
+        self.ba_async["dispatched"] += 1
+        return {"res": res, "ring": ring, "kf_ok": kf_ok, "gen0": gen0,
+                "frame": self.frame, "done": done}
+
+    def _apply_pending_ba(self, why: str = "flushed"):
+        """Write back the in-flight BA result (async_ba), after the main
+        stream waited for the solve's event; point slots re-minted while it
+        was in flight are skipped (``gen0``)."""
+        pb = self._pending_ba
+        if pb is None:
+            return
+        self._pending_ba = None
+        self.ba_async[why] += 1
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).wait_event(pb["done"])
+        self.state = steps.apply_ba_table_results(
+            self.state, pb["res"], pb["ring"], pb["kf_ok"], self.cfg,
+            gen0=pb["gen0"])
+        self._pose_host_cache = None
+        self._kf_pose_host = None
+        self._prefetch_poses()
+
+    def _poll_ba(self, max_defer: int = 8):
+        """Apply the in-flight BA once its solve has finished (on a card:
+        its event has completed; on the CPU the solve ran at dispatch, so
+        the next poll applies it), or after ``max_defer`` frames regardless
+        (bounded staleness)."""
+        pb = self._pending_ba
+        if pb is None:
+            return
+        if pb["done"] is None or pb["done"].query():
+            self._apply_pending_ba("ready")
+        elif self.frame - pb["frame"] >= max_defer:
+            self._apply_pending_ba("deferred")
+
+    def _cancel_pending_ba(self):
+        """bCancelBA: a merge or loop closure rewrote the poses, so a BA in
+        flight, solved against the old geometry, is dropped."""
+        if self._pending_ba is not None:
+            self._pending_ba = None
+            self.ba_async["cancelled"] += 1
 
     def _prefetch_poses(self):
         """Fetch the BA-corrected live pose and the newest keyframe pose in
@@ -705,6 +1174,17 @@ class CoSlamEngine:
             _pack_rt(self.state.kfs.R[kf_idx], self.state.kfs.t[kf_idx])])
         both = both.cpu().numpy()
         self._pose_prefetch, self._kf_prefetch = both[0], both[1]
+
+    def _store_dynamic_snapshot(self, frame: Optional[int] = None):
+        """The alive dynamic points as a log entry (storeDynamicPoints),
+        pulled from the device: the non-fused path's snapshot."""
+        mp = self.state.mappts
+        status, ptype, xyz = to_host(mp.status, mp.ptype, mp.xyz)
+        dyn = (status == ST_ALIVE) & (ptype == PT_DYNAMIC)
+        ids = np.nonzero(dyn)[0]
+        if len(ids):
+            self.dyn_log.append((self.frame if frame is None else frame,
+                                 ids, xyz[dyn]))
 
     def _pose_host(self):
         """Current (R, t) as numpy, fetched once per state change."""
@@ -735,7 +1215,10 @@ class CoSlamEngine:
         translation scale (uncertainScale): after a merge or loop closure
         rescaled the keyframe anchors, the drift window's raw relative
         translations are still at the old scale, and the chain stretches
-        to its anchors instead of distorting."""
+        to its anchors instead of distorting. The chunk and overlap
+        buffers are drained first."""
+        self._flush_chunk()
+        self._flush_overlap()
         Rs = np.stack([p[0] for p in self.traj[c]])
         ts = np.stack([p[1] for p in self.traj[c]])
         if not correct or not self.kf_frames:

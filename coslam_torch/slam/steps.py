@@ -19,6 +19,7 @@ syncs. Functions return new tensors; the state passed in is not modified.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -44,7 +45,7 @@ from coslam_torch.slam.state import (LONG_STRIDE, PT_DYNAMIC, PT_STATIC,
                                      ST_ALIVE, ST_FALSE, ST_FREE,
                                      KeyframeStore, MapPoints, SlamState,
                                      TrackTable)
-from coslam_torch.util import nanmedian, set_drop
+from coslam_torch.util import device_constant, nanmedian, set_drop
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +140,8 @@ def seed_tracks(tracks: TrackTable, pos: torch.Tensor, valid: torch.Tensor,
     """Overwrite the table with externally chosen points (bootstrap
     seeding). ``pos`` is in undistorted pixel space; raw positions are
     reconstructed by applying distortion."""
-    frame = torch.as_tensor(frame, dtype=torch.int32, device=pos.device)
+    if not torch.is_tensor(frame):
+        frame = torch.full((), frame, dtype=torch.int32, device=pos.device)
     xn = pixel_to_normalized(pos, K[:, None])
     raw = normalized_to_pixel(distort_normalized(xn, kc[:, None]), K[:, None])
     hist, hist_valid, hist_long, hist_long_valid = _write_history(
@@ -337,12 +339,23 @@ def _history_offsets(T: int) -> np.ndarray:
     return np.unique(np.concatenate([geo, [T - 1]]))
 
 
+@functools.lru_cache(maxsize=None)
+def _max_parallax_cos(deg: float) -> float:
+    """cos of the minimum parallax angle, rounded to float32 as the
+    reference computes it (a Python float, so the comparison needs no
+    tensor on the device)."""
+    return float(torch.cos(torch.deg2rad(torch.tensor(deg,
+                                                      dtype=torch.float32))))
+
+
 def new_map_points(state: SlamState, pyr_cur: Pyramid, K: torch.Tensor,
-                   kc: torch.Tensor, cfg: SlamConfig):
+                   kc: torch.Tensor, cfg: SlamConfig, blocks=None):
     """Triangulation of mature unmapped tracks against the parallax-widest
     history view, refined over the whole track history and re-checked at
     both endpoint views (newMapPoints + refineTriangulation); NCC
-    appearance refresh; slot allocation. Returns (mappts', tracks', n_new)."""
+    appearance refresh; slot allocation. Returns (mappts', tracks', n_new).
+    ``blocks``: optional ([C, N, B] NCC blocks, [C, N] mask) at
+    ``tracks.raw``, cut beforehand (``pyr_cur`` is then not read)."""
     tracks, mappts = state.tracks, state.mappts
     C, N = tracks.valid.shape
     T = tracks.hist.shape[1]
@@ -362,7 +375,8 @@ def new_map_points(state: SlamState, pyr_cur: Pyramid, K: torch.Tensor,
     offs = _history_offsets(T)
     Ts = len(offs)
     ages = torch.clamp(tracks.age - 1, max=T - 1)
-    k_off = torch.as_tensor(offs, dtype=torch.int32, device=dev)
+    k_off = device_constant(("history_offsets", T), dev,
+                            lambda: torch.as_tensor(offs, dtype=torch.int32))
     past_frame = frame - k_off                                     # [Ts]
     ring = torch.remainder(past_frame, T).long()
     hist_pos = tracks.hist.index_select(1, ring)                   # [C,Ts,N,2]
@@ -388,10 +402,9 @@ def new_map_points(state: SlamState, pyr_cur: Pyramid, K: torch.Tensor,
     den2 = (dn[0] * dn[0] + dn[1] * dn[1] + dn[2] * dn[2]) * \
         (dp[0] * dp[0] + dp[1] * dp[1] + dp[2] * dp[2])
     pcos = num * torch.rsqrt(torch.clamp(den2, min=1e-18))
-    max_cos = torch.cos(torch.deg2rad(torch.tensor(
-        p.new_point_min_parallax_deg, dtype=dt)))
+    max_cos = _max_parallax_cos(float(p.new_point_min_parallax_deg))
     gate2 = p.reproj_new_point_gate ** 2
-    good = hist_ok & (torch.abs(pcos) < max_cos.to(dev))
+    good = hist_ok & (torch.abs(pcos) < max_cos)
     score = torch.where(good, -torch.abs(pcos),
                         torch.full_like(pcos, -math.inf))
     best_k = torch.argmax(score, dim=1)                            # [C,N]
@@ -477,8 +490,11 @@ def new_map_points(state: SlamState, pyr_cur: Pyramid, K: torch.Tensor,
     covs = torch.stack([torch.stack(r) for r in Hinv]).permute(2, 3, 0, 1) \
         * p.pixel_err_var                                          # [C,N,3,3]
     # NCC appearance at the current frame
-    blocks, blk_ok = extract_ncc_blocks_batched(
-        pyr_cur.imgs[0], tracks.raw, p.ncc_patch_radius)
+    if blocks is None:
+        blocks, blk_ok = extract_ncc_blocks_batched(
+            pyr_cur.imgs[0], tracks.raw, p.ncc_patch_radius)
+    else:
+        blocks, blk_ok = blocks
     # refresh stored appearance of observed points while the new view still
     # resembles the stored one (NCC >= 0.8)
     mi_b = torch.clamp(tracks.mpt, min=0).long()
@@ -601,7 +617,8 @@ def build_ba_table(state: SlamState, K: torch.Tensor, cfg: SlamConfig,
     tbl_v = set_drop(torch.zeros((P, S), dtype=obs_pos.dtype, device=dev),
                      (tgt, slot_of), obs_pos[..., 1].reshape(-1)).T
     cnt = torch.sum(tbl_ok, dim=0)
-    oldest_frame = kfs.frame[ring[torch.argmax(kf_ok.to(torch.int32))]]
+    oldest = ring.index_select(0, torch.argmax(kf_ok.to(torch.int32))[None])
+    oldest_frame = kfs.frame.index_select(0, oldest)[0]
     point_fixed = (cnt < 2) | (mappts.first_frame < oldest_frame)
     valid = tbl_ok & (cnt >= 2)[None]
     kf_fixed = (arW < 2) | ~kf_ok
@@ -640,19 +657,25 @@ def build_ba_table(state: SlamState, K: torch.Tensor, cfg: SlamConfig,
 
 
 def apply_ba_table_results(state: SlamState, res, ring: torch.Tensor,
-                           kf_ok: torch.Tensor, cfg: SlamConfig) -> SlamState:
+                           kf_ok: torch.Tensor, cfg: SlamConfig,
+                           gen0: torch.Tensor | None = None) -> SlamState:
     """Write back a BATableResult: per-point outlier counts come from the
     [S, P] flag table; columns beyond the map capacity (dynamic snapshots)
-    constrain the solve but are not written back."""
+    constrain the solve but are not written back.
+
+    ``gen0``: the map slots' generations when the solve was dispatched.
+    A deferred (asynchronous) result skips the slots that were reclaimed
+    and re-minted while it was in flight: their point is another one now
+    (the reference's mutex-guarded deferred write-back)."""
     P = state.mappts.xyz.shape[0]
     n_bad = torch.sum(res.obs_outlier[:, :P], dim=0)
     n_obs = torch.sum(res.obs_valid[:, :P], dim=0)
     return _apply_ba_core(state, res.R, res.t, res.X[:P], n_bad, n_obs,
-                          ring, kf_ok, cfg)
+                          ring, kf_ok, cfg, gen0)
 
 
 def _apply_ba_core(state: SlamState, R_res, t_res, X_res, n_bad, n_obs,
-                   ring, kf_ok, cfg: SlamConfig):
+                   ring, kf_ok, cfg: SlamConfig, gen0=None):
     kfs, mappts = state.kfs, state.mappts
     C = kfs.R.shape[1]
     W = ring.shape[0]
@@ -684,12 +707,14 @@ def _apply_ba_core(state: SlamState, R_res, t_res, X_res, n_bad, n_obs,
         R=kfs.R.index_copy(0, ring, torch.where(okw, R_new, R_win_old)),
         t=kfs.t.index_copy(0, ring, torch.where(okw[..., 0], t_new,
                                                 t_win_old)))
-    xyz = torch.where(ba_ok, X_res, mappts.xyz)
+    same = torch.ones_like(mappts.gen, dtype=torch.bool) if gen0 is None \
+        else mappts.gen == gen0
+    xyz = torch.where((same & ba_ok)[:, None], X_res, mappts.xyz)
     # outlier -> setFalse, hardened: a point dies only if most of its
     # window observations are outliers, and no kills are applied when the
     # solve would condemn a large fraction of the participating points
     alive = mappts.status == ST_ALIVE
-    kill = (2 * n_bad > n_obs) & (n_obs > 0) & alive
+    kill = (2 * n_bad > n_obs) & (n_obs > 0) & same & alive
     n_part = torch.sum((n_obs > 0) & alive)
     solve_sane = (torch.sum(kill) * 10 <= n_part * 3) & ba_ok
     status = torch.where(kill & solve_sane,

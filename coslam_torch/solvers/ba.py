@@ -130,8 +130,10 @@ def _table_schur(Hcc, gc, Wcp, Hpp, gp, lam, cam_fixed, point_fixed):
     Sred = Sred * free[:, None, None, None] * free[None, None, :, None]
     Sred[ar, :, ar, :] += eye6[None] * cam_fixed[:, None, None].to(dt)
     rhs = rhs * free[:, None]
-    dc = -torch.linalg.solve(Sred.reshape(S * 6, S * 6),
-                             rhs.reshape(-1)).reshape(S, 6)
+    # solve_ex: no host sync for the error check (a singular system gives
+    # non-finite steps, which the caller rejects)
+    dc = -torch.linalg.solve_ex(Sred.reshape(S * 6, S * 6),
+                                rhs.reshape(-1))[0].reshape(S, 6)
     Wt_dc = torch.einsum("iksp,si->kp", Wm, dc)
     dX = -torch.einsum("klp,lp->kp", Hinv, gp_m + Wt_dc)
     return dc, dX

@@ -1,5 +1,6 @@
 """Small tensor helpers shared across the package: device selection, the
-NaN-aware median, batched host copies and JAX-style dropping scatters."""
+NaN-aware median, batched host copies, host arrays moved to the card
+without a wait, and JAX-style dropping scatters."""
 
 from __future__ import annotations
 
@@ -50,18 +51,46 @@ def to_host(*tensors):
     return [a.numpy() for a in out]
 
 
+def to_device(a, device, dtype=None) -> torch.Tensor:
+    """A small host array (numpy, list or CPU tensor) on ``device`` with no
+    host wait: the copy to a card is queued with ``non_blocking=True``,
+    which stages pageable memory at once and does not synchronize the
+    stream (a blocking copy does)."""
+    t = torch.as_tensor(a, dtype=dtype)
+    return t.to(device, non_blocking=True)
+
+
+_CONSTANTS: dict = {}
+
+
+def device_constant(key, device, make) -> torch.Tensor:
+    """``to_device(make(), device)``, built once per ``key`` and device and
+    kept: a constant of the per-frame step costs no copy after its first
+    frame."""
+    device = torch.device(device)
+    k = (key, device.type, device.index)
+    t = _CONSTANTS.get(k)
+    if t is None:
+        t = _CONSTANTS[k] = to_device(make(), device)
+    return t
+
+
 def set_drop(dst: torch.Tensor, idx, val, accumulate: bool = False):
     """``dst.at[idx].set(val, mode="drop")`` along dim 0: entries whose
     index is >= len(dst) are dropped. ``idx`` is a tensor or a tuple of
     index tensors (only the first is range-checked). Writes go through a
-    sentinel row, so nothing syncs with the host. Returns a new tensor."""
+    sentinel row, so nothing syncs with the host; a Python scalar ``val``
+    becomes a device fill, not a host-to-device copy. Returns a new
+    tensor."""
     n = dst.shape[0]
     if not isinstance(idx, tuple):
         idx = (idx,)
     first = torch.clamp(idx[0].long(), 0, n)
     ext = torch.cat([dst, dst.new_zeros((1,) + tuple(dst.shape[1:]))])
-    ext.index_put_((first,) + tuple(i.long() for i in idx[1:]),
-                   val.to(dst.dtype) if torch.is_tensor(val)
-                   else torch.tensor(val, dtype=dst.dtype, device=dst.device),
+    if torch.is_tensor(val):
+        val = val.to(dst.dtype)
+    else:
+        val = torch.full((), val, dtype=dst.dtype, device=dst.device)
+    ext.index_put_((first,) + tuple(i.long() for i in idx[1:]), val,
                    accumulate=accumulate)
     return ext[:n]

@@ -1,9 +1,11 @@
 """Tests of the port that need a CUDA card: each CUDA kernel
 (build_pyramid, klt_track, extract_windows, ncc_blocks, ncc_search)
 against its plain PyTorch version at the main paths' shapes (one camera
-and three; the loop closure's search), the wrappers' input checks, and
-the engine on the card against the same run on the CPU (one camera, and
-two on the rig).
+and three; the loop closure's search), the wrappers' input checks, the
+kernels' general paths for radii above the tuned ones, the engine on the
+card against the same run on the CPU (one camera, and two on the rig),
+a tracked step that never waits on the host, the overlap mode's pinned
+buffers, and asynchronous BA on a side stream.
 Where no card is present each test skips (the decision is made inside
 the ``cuda`` fixture, never at import).
 
@@ -151,7 +153,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         klt_track(pyr, pyr, pos, valid[:, :4], cfg)
     with pytest.raises(ValueError):
         klt_track(pyr, pyr, pos, valid, KLTConfig(n_levels=2,
-                                                  window_radius=8))
+                                                  window_radius=-1))
+    with pytest.raises(ValueError):            # a 66-px window at r = 26
+        klt_track(pyr, pyr, pos, valid, KLTConfig(n_levels=2,
+                                                  window_radius=26))
     with pytest.raises(ValueError):
         klt_track(pyr, build_pyramid(img, 3), pos, valid, cfg)
     with pytest.raises(ValueError):
@@ -318,7 +323,8 @@ def _ncc_block_inputs(C, h, w, n, radius, seed):
     return imgs, pos
 
 
-@pytest.mark.parametrize("C,radius", [(1, 5), (3, 5), (3, 3), (3, 7)])
+@pytest.mark.parametrize("C,radius", [(1, 5), (3, 5), (3, 3), (3, 7),
+                                     (3, 9), (1, 9)])
 def test_ncc_blocks_kernel_matches_plain(cuda, C, radius):
     """One ncc_blocks launch against the plain version on the card (its
     windows cut by the window kernel) at N = 1024 per 480x640 camera: the
@@ -344,7 +350,7 @@ def test_ncc_blocks_kernel_matches_plain(cuda, C, radius):
     assert (tp.n(blocks)[~okn] == 0).all()
 
 
-def _search_inputs(h, w, n, sr, seed):
+def _search_inputs(h, w, n, sr, seed, patch_radius=5):
     """A one-pass smooth texture, templates cut at integer true positions,
     centres up to sr - 4 px off them, the first three centres so near the
     border that their windows clamp."""
@@ -356,7 +362,7 @@ def _search_inputs(h, w, n, sr, seed):
     off = rng.integers(-(sr - 4), sr - 3, (n, 2)).astype(np.float32)
     centers = true + off
     centers[:3] = [[5, h / 2], [w / 2, h - 3], [w - 4, 10]]
-    tmpl, _ = extract_ncc_blocks(img, tp.t(true), 5)
+    tmpl, _ = extract_ncc_blocks(img, tp.t(true), patch_radius)
     return img, tp.t(centers), tmpl, true
 
 
@@ -414,7 +420,7 @@ def test_ncc_wrappers_reject_what_the_kernels_do_not_take(cuda):
     for bad in [(imgs.double(), pos, 5), (imgs[0], pos[0], 5),
                 (imgs.transpose(1, 2), pos, 5),
                 (imgs, pos.double(), 5), (imgs, pos[:1], 5),
-                (imgs, pos.cpu(), 5), (imgs, pos, 8), (imgs, pos, -1),
+                (imgs, pos.cpu(), 5), (imgs, pos, 40), (imgs, pos, -1),
                 (imgs[:, :11].contiguous(), pos, 5)]:
         with pytest.raises(ValueError):
             extract_ncc_blocks_batched(*bad)
@@ -431,9 +437,177 @@ def test_ncc_wrappers_reject_what_the_kernels_do_not_take(cuda):
                     ((img, ctr, tmpl[:, :49]), {}),
                     ((img, ctr, tmpl.t().contiguous().t()), {}),
                     ((img, ctr.cpu(), tmpl), {}),
-                    ((img, ctr, tmpl), {"patch_radius": 8}),
-                    ((img, ctr, tmpl), {"search_radius": 21}),
+                    ((img, ctr, tmpl), {"patch_radius": -1}),
+                    ((img, ctr, tmpl), {"search_radius": -1}),
                     ((img, ctr, tmpl), {"search_radius": 30})]:
         with pytest.raises(ValueError):
             ncc_search(*bad, **kw)
     assert ncc_search.launches == n0
+
+
+# ------------------------------------------------- general radius paths ----
+
+@pytest.mark.parametrize("radius", [9])
+def test_klt_track_general_path_matches_plain(cuda, radius):
+    """klt_track at a window radius above the tuned path's 7 (the general
+    path: windows in dynamic shared memory, per-pixel terms recomputed)
+    against the plain version, in the bands of
+    test_klt_track_kernel_matches_plain."""
+    from coslam_torch.config import KLTConfig
+    from coslam_torch.ops.klt import klt_track, klt_track_plain
+    from coslam_torch.ops.pyramid import build_pyramid
+    C, h, w, n = 1, 480, 640, 1024
+    imgs0, imgs1, pos, valid = _klt_inputs(C, h, w, n, seed=radius)
+    p0 = build_pyramid(torch.as_tensor(imgs0, device=cuda), 4)
+    p1 = build_pyramid(torch.as_tensor(imgs1, device=cuda), 4)
+    pos, valid = torch.as_tensor(pos, device=cuda), \
+        torch.as_tensor(valid, device=cuda)
+    cfg = KLTConfig(n_levels=4, window_radius=radius)
+    n0 = klt_track.launches
+    got = klt_track(p0, p1, pos, valid, cfg)
+    assert klt_track.launches == n0 + 1
+    want = klt_track_plain(p0, p1, pos, valid, cfg)
+    torch.cuda.synchronize()
+    gv, wv, vin = (tp.n(x) for x in (got.valid, want.valid, valid))
+    assert wv.sum() > 0.6 * vin.sum()
+    assert (gv != wv)[vin].sum() <= max(1, 0.005 * vin.sum())
+    both = gv & wv
+    np.testing.assert_allclose(tp.n(got.pos)[both], tp.n(want.pos)[both],
+                               atol=1e-3)
+    np.testing.assert_allclose(tp.n(got.gain)[both], tp.n(want.gain)[both],
+                               atol=1e-4)
+    np.testing.assert_allclose(tp.n(got.ssd)[both], tp.n(want.ssd)[both],
+                               rtol=1e-3, atol=1e-2)
+
+
+@pytest.mark.parametrize("patch_radius,search_radius", [(9, 24), (5, 24)])
+def test_ncc_search_general_path_matches_plain(cuda, patch_radius,
+                                               search_radius):
+    """ncc_search at radii above the tuned path's (patch 7, search 20),
+    against the plain version in the bands of
+    test_ncc_search_kernel_matches_plain."""
+    from coslam_torch.ops.ncc import ncc_search, ncc_search_plain
+    img, centers, tmpl, true = _search_inputs(
+        480, 640, 256, search_radius, seed=search_radius,
+        patch_radius=patch_radius)
+    args = (img.to(cuda), centers.to(cuda), tmpl.to(cuda))
+    kw = dict(search_radius=search_radius, patch_radius=patch_radius)
+    n0 = ncc_search.launches
+    got = ncc_search(*args, **kw)
+    assert ncc_search.launches == n0 + 1
+    want = ncc_search_plain(*args, **kw)
+    gpx, gsc, wpx, wsc = (tp.n(a) for a in (*got, *want))
+    same = (gpx == wpx).all(1)
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(gsc[same], wsc[same], atol=1e-4)
+    assert (gsc[:3] == -2.0).all() and (wsc[:3] == -2.0).all()
+    assert (np.abs(gpx[3:] - true[3:]).max(1) == 0).mean() > 0.9
+
+
+# ------------------------------------------------------- engine modes ----
+
+def _card_frames(C, n_frames):
+    """The port's render on the card: the mono room, or the C-camera rig
+    ([F, C, H, W]), with ground truth [C, F]."""
+    from coslam_torch.io.synthetic import (make_room, orbit_trajectory,
+                                           render_sequence, rig_sequence)
+    planes = make_room(np.random.default_rng(0), size=10.0)
+    if C == 1:
+        Rs, ts = orbit_trajectory(n_frames, forward=0.06)
+        Rs, ts = Rs[None], ts[None]
+    else:
+        Rs, ts = rig_sequence(C, n_frames, baseline=1.0, forward=0.06)
+    frames = torch.stack([render_sequence(planes, tp.KMAT[0], Rs[c], ts[c],
+                                          tp.H, tp.W, device="cuda")
+                          for c in range(C)], dim=1)
+    return frames, Rs, ts
+
+
+def _engine(C, device, **kw):
+    from coslam_torch.config import small_test_config
+    from coslam_torch.slam.pipeline import CoSlamEngine
+    return CoSlamEngine(small_test_config(C, tp.H, tp.W), *tp.kmats(C),
+                        device=device, **kw)
+
+
+@pytest.mark.parametrize("C,large_err", [(1, False), (1, True), (3, False),
+                                         (3, True)])
+def test_frame_step_never_waits_on_the_host(cuda, C, large_err):
+    """A warmed tracked step (and its stats packing) enqueues with no
+    synchronizing call: under set_sync_debug_mode("error") any blocking
+    copy or stream sync raises."""
+    from coslam_torch.slam.fused import frame_step_packed
+    frames, _, _ = _card_frames(C, 14)
+    eng = _engine(C, cuda)
+    for f in range(12):
+        eng.process_frame(frames[f])
+    assert eng.bootstrapped
+    args = (eng.K, eng.kc, eng.cfg)
+    st, pyr, _ = frame_step_packed(eng.state, eng.pyr_prev, frames[12],
+                                   *args, large_err=large_err)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, pyr, v = frame_step_packed(st, pyr, frames[13], *args,
+                                       large_err=large_err)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(v).all()
+
+
+def test_overlap_reads_pinned_buffers(cuda):
+    """Overlap mode copies each frame's stats into pinned host memory
+    (two buffers in turn) behind a CUDA event."""
+    frames, _, _ = _card_frames(1, 16)
+    eng = _engine(1, cuda, overlap=True)
+    bufs = set()
+    for f in range(16):
+        eng.process_frame(frames[f])
+        if eng._pending_fs is not None:
+            buf, done = eng._pending_fs[1]
+            assert buf.is_pinned() and isinstance(done, torch.cuda.Event)
+            bufs.add(buf.data_ptr())
+    assert len(bufs) == 2
+    eng.trajectory(0)
+    assert eng._pending_fs is None
+
+
+def test_async_ba_on_a_side_stream(cuda):
+    """async_ba on the card: the solves run on a stream of their own and
+    are applied through their events (at this size a solve has finished by
+    the poll right after its dispatch), the run agrees with the CPU's
+    async run in the band of the engine test above (bootstrap frame,
+    keyframes two entries apart, ATE, centres within 5% of the path), and
+    a solve cancelled in flight leaves the state as it was."""
+    from coslam_torch.io.ate import ate_rmse
+    from coslam_torch.slam.state import state_to_numpy
+    frames, Rs, ts = _card_frames(1, 30)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = _engine(1, dev, async_ba=True)
+        for f in range(30):
+            eng.process_frame(frames[f].to(dev))
+        eng._apply_pending_ba()
+        runs[dev] = eng
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    assert gpu._ba_stream is not None
+    assert gpu._ba_stream != torch.cuda.default_stream()
+    assert gpu.ba_async["dispatched"] >= 2 and gpu.ba_async["ready"] >= 1
+    assert gpu.ba_async["dispatched"] == sum(
+        gpu.ba_async[k] for k in ("ready", "deferred", "flushed",
+                                  "cancelled"))
+    assert tp.boot_frame(gpu.stats_log) == tp.boot_frame(cpu.stats_log)
+    assert len(set(gpu.kf_frames) ^ set(cpu.kf_frames)) <= 2
+    for eng in (cpu, gpu):
+        assert ate_rmse(*eng.trajectory(0, True), Rs[0], ts[0]) < 0.20
+    gap, path = tp.aligned_gap(gpu.trajectory(0, True),
+                               cpu.trajectory(0, True))
+    assert gap < 0.05 * path
+    # a solve cancelled in flight
+    gpu._run_ba()
+    assert gpu._pending_ba is not None
+    before = tp.leaves(state_to_numpy(gpu.state))
+    gpu._cancel_pending_ba()
+    torch.cuda.synchronize()
+    for a, b in zip(before, tp.leaves(state_to_numpy(gpu.state))):
+        np.testing.assert_array_equal(a, b)

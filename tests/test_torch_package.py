@@ -232,10 +232,11 @@ def test_engine_needs_a_card_or_an_explicit_cpu(monkeypatch):
 
 
 def test_parts_outside_the_slice_raise():
-    """The engine modes (A15) and meshes (A18) raise at construction. The
-    group-merge call site (ported, A14) tries a merge on a grouping tick
-    past merge_min_interval when two groups' maps could overlap, and then
-    backs off one tick while the bridge keeps failing."""
+    """The engine modes (ported, A15) construct; meshes and BA on another
+    device than the engine's (A18) raise at construction. The group-merge
+    call site (ported, A14) tries a merge on a grouping tick past
+    merge_min_interval when two groups' maps could overlap, and then backs
+    off one tick while the bridge keeps failing."""
     from types import SimpleNamespace
     from coslam_torch.config import small_test_config
     from coslam_torch.slam.pipeline import GROUPING_INTERVAL, CoSlamEngine
@@ -243,11 +244,16 @@ def test_parts_outside_the_slice_raise():
     K = np.array([[[100.0, 0, 64], [0, 100.0, 48], [0, 0, 1]]], np.float32)
     kc = np.zeros((1, 5), np.float32)
     for kw in (dict(chunk=4), dict(overlap=True), dict(async_ba=True),
-               dict(use_fused=False)):
-        with pytest.raises(NotImplementedError, match="A15"):
-            CoSlamEngine(cfg, K, kc, device="cpu", **kw)
+               dict(use_fused=False), dict(profile=True),
+               dict(ba_device="cpu"),
+               dict(chunk=3, overlap=True, async_ba=True)):
+        eng = CoSlamEngine(cfg, K, kc, device="cpu", **kw)
+        for k, v in kw.items():
+            assert getattr(eng, k) == v
     with pytest.raises(NotImplementedError, match="A18"):
         CoSlamEngine(cfg, K, kc, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="A18"):
+        CoSlamEngine(cfg, K, kc, device="cpu", ba_device="cuda:1")
     cfg2 = small_test_config(2, 96, 128)
     eng = CoSlamEngine(cfg2, np.repeat(K, 2, 0), np.zeros((2, 5), np.float32),
                        device="cpu")
