@@ -25,6 +25,14 @@ points, 64 keyframes, BA window 5) in the synthetic room:
   groups split, the merge bridge rejoins them, every camera's ATE;
 - mono_loop, 400 frames (one camera maps a wall, turns away and comes
   back): a loop closure anchored on the dormant map, the ATE;
+- distorted_io, 100 frames of the reference's distorted configuration
+  (three cameras on a rig, k1 = -0.25, k2 = 0.08) read from files: CSRW
+  videos, calibration files and an input.txt through the CLI
+  (``coslam_torch.cli``, the native loader, the export), every camera's
+  ATE from the exported poses; a checkpoint at frame 60 resumed against
+  the uninterrupted run; the loader alone, loader-fed against resident
+  frames, the feature log's synchronizing calls, checkpoint save and
+  load; TV-L1 flow on a pair of its frames, card against CPU;
 and checks that the path's kernels ran (launch counts set to 0 just
 before a path and read just after it): build_pyramid, klt_track and
 ncc_blocks on every path, ncc_search once per searching closure attempt
@@ -804,10 +812,15 @@ def frame_times(eng, frame_ms):
             float(np.percentile(trk, 90)))
 
 
+def failed_checks(name: str, checks: dict) -> list[str]:
+    """The names of the checks that failed, each after ``name``."""
+    return [f"{name}: {k}" for k, ok in checks.items() if not ok]
+
+
 def check(name: str, checks: dict):
-    bad = [k for k, ok in checks.items() if not ok]
+    bad = failed_checks(name, checks)
     if bad:
-        raise AssertionError(f"{name} checks failed: {bad}")
+        raise AssertionError(f"checks failed: {bad}")
 
 
 def phase_main_path(card: str):
@@ -849,6 +862,8 @@ def phase_main_path(card: str):
         f"{eng.syncs.in_step} inside frame_step; card {card}")
     check("main path", {
         "frame_step never waits on the host": eng.syncs.in_step == 0,
+        "<= 2 synchronizing calls a tracked frame":
+            eng.syncs.total <= 2 * n_trk,
         "bootstrapped": eng.bootstrapped,
         ">=3 keyframes": len(eng.kf_frames) >= 3,
         "BA ran": eng.ba_runs >= 1,
@@ -1481,6 +1496,360 @@ def phase_profile(eng, frames, warm: int, card: str, table_path,
         log(f"profile {label}: inside {name}: {rec}")
 
 
+DIST_FRAMES = 100                # of the reference's 300 (ACCURACY.md:20)
+DIST_RESUME = 100                # frames of the checkpoint run
+DIST_SAVE = 60                   # its checkpoint's frame
+DIST_RESIDENT = 40               # frames of the resident-frames run
+# the CPU's TV-L1 flow against the card's on the same pair: float32
+# elementwise rounding differs (the card contracts multiply-adds), and 180
+# primal-dual iterations carry it
+FLOW_TOL = 1e-2
+
+
+def distorted_scene(n_frames: int, dev):
+    """The distorted configuration of examples/accuracy_bench.py
+    (config_distorted and _rig_frames, seed 0 as on the other paths):
+    three cameras on a rig (baseline 1.0, orbit_trajectory forward 0.04)
+    with k1 = -0.25, k2 = 0.08 on every camera, the generator drawn in
+    that script's order (one uniform, then the room). The views are
+    rendered in batches (render_batch, each view with its frame index)
+    and warped through the lens (apply_distortion_warp) on ``dev``.
+    Returns (frames [F, 3, H, W] f32 on ``dev``, Rs_gt [3, F, 3, 3],
+    ts_gt [3, F, 3], kc [3, 5])."""
+    from coslam_torch.io.synthetic import (apply_distortion_warp,
+                                           make_room, render_batch,
+                                           rig_sequence)
+    rng = np.random.default_rng(0)
+    rng.uniform()
+    planes = make_room(rng, size=10.0)
+    C = 3
+    kc = np.zeros((C, 5), np.float32)
+    kc[:, 0], kc[:, 1] = -0.25, 0.08
+    Rs, ts = rig_sequence(C, n_frames, baseline=1.0, forward=0.04)
+    frames = render_batch(planes, KPROD,
+                          Rs.transpose(1, 0, 2, 3).reshape(-1, 3, 3),
+                          ts.transpose(1, 0, 2).reshape(-1, 3), H, W,
+                          frames=np.repeat(np.arange(n_frames), C),
+                          chunk=4 * C, device=dev).reshape(n_frames, C, H, W)
+    frames = torch.stack([apply_distortion_warp(frames[:, c], KPROD, kc[c])
+                          for c in range(C)], dim=1)
+    return frames, Rs, ts, kc
+
+
+def write_inputs(root: str, frames_u8: np.ndarray, kc: np.ndarray) -> str:
+    """One CSRW file and one calibration file a camera, and the input.txt
+    of the reference's format naming them. Returns input.txt's path."""
+    from coslam_torch.io.calib import write_calib_file
+    from coslam_torch.io.loader import write_raw_sequence
+    C = frames_u8.shape[1]
+    videos, calibs = [], []
+    for c in range(C):
+        videos.append(os.path.join(root, f"cam{c}.csrw"))
+        calibs.append(os.path.join(root, f"cam{c}_calib.txt"))
+        write_raw_sequence(videos[c], frames_u8[:, c])
+        write_calib_file(calibs[c], KPROD, kc[c])
+    path = os.path.join(root, "input.txt")
+    with open(path, "w") as f:
+        f.write(f"{C}\n" + "0 10\n" * C + "".join(v + "\n" for v in videos)
+                + "".join(p + "\n" for p in calibs))
+    return path
+
+
+class FrameClock:
+    """Wall time (ms, after a device sync) and synchronizing calls of every
+    ``CoSlamEngine.process_frame`` call while entered, however the engine
+    is driven (the CLI too). ``syncs``: a SyncCounter entered around
+    the whole run."""
+
+    def __init__(self, syncs: "SyncCounter"):
+        self.syncs = syncs
+        self.ms, self.n_syncs = [], []
+
+    def __enter__(self):
+        from coslam_torch.slam.pipeline import CoSlamEngine
+        self._orig = CoSlamEngine.process_frame
+        clock = self
+
+        def timed(eng, images):
+            n0 = clock.syncs.total
+            t0 = time.perf_counter()
+            out = clock._orig(eng, images)
+            torch.cuda.synchronize()
+            clock.ms.append((time.perf_counter() - t0) * 1e3)
+            clock.n_syncs.append(clock.syncs.total - n0)
+            return out
+        CoSlamEngine.process_frame = timed
+        return self
+
+    def __exit__(self, *exc):
+        from coslam_torch.slam.pipeline import CoSlamEngine
+        CoSlamEngine.process_frame = self._orig
+
+    def tracked(self, eng, upto: int | None = None):
+        """(tracked-frame wall median and p90 ms, synchronizing calls a
+        tracked frame) of the calls of frames before ``upto`` (default
+        all); the frames tracked are those logged with a reprojection
+        error."""
+        idx = [s["frame"] for s in eng.stats_log if "med_err" in s
+               and (upto is None or s["frame"] < upto)]
+        ms = np.asarray(self.ms)[idx]
+        return float(np.median(ms)), float(np.percentile(ms, 90)), \
+            float(np.asarray(self.n_syncs)[idx].sum() / len(idx))
+
+
+def aligned_rms(a, b) -> float:
+    """RMS camera-centre distance of trajectory ``a`` Sim(3)-aligned to
+    ``b`` (two runs with maps of their own)."""
+    from coslam_torch.io.ate import camera_centers, umeyama
+    ca, cb = camera_centers(*a), camera_centers(*b)
+    s, R, t = umeyama(ca, cb)
+    d = (s * (R @ ca.T)).T + t - cb
+    return float(np.sqrt(np.mean(np.sum(d * d, -1))))
+
+
+def centre_rms(a, b) -> float:
+    """RMS over frames of the camera-centre distance of two trajectories
+    in the same map (no alignment)."""
+    from coslam_torch.io.ate import camera_centers
+    d = camera_centers(*a) - camera_centers(*b)
+    return float(np.sqrt(np.mean(np.sum(d * d, -1))))
+
+
+def phase_distorted_io(card: str):
+    """The reference's distorted configuration at full width, read from
+    files (ROADMAP A16): 100 of its 300 frames rendered and warped on the
+    card (a few views held against the CPU's render and warp), quantized
+    to uint8 and written as CSRW videos, calibration files and an
+    input.txt; then
+    - run A: ``coslam_torch.cli.main`` over the 100 frames (native loader,
+      engine on the card, export); every camera's Sim(3)-aligned ATE from
+      its exported campose file under 3% of camera 0's path (the
+      reference's record over all 300 frames: 2.45%); mappts.txt and
+      input_videos.txt parse; build_pyramid on every frame, klt_track on
+      every tracked one, ncc_blocks launched;
+    - run B: an engine fed by FrameLoader (native) with log_features saves
+      a checkpoint at frame 60 and runs to 100; a fresh engine loads it
+      (frame, keyframes, groups, merge log and the reference pyramid as
+      saved) and runs on from a loader started at frame 60: its tracked
+      poses within 1% of run B's camera-0 path (RMS of the camera
+      centres, B's path from its bootstrap on) of run B's, or, where the
+      two uninterrupted runs A and B bootstrap at the same frame and
+      drift further apart than that (Sim(3)-aligned centres over frames
+      0-99: the card's atomic sums change order from run to run), within
+      that drift; the exported featpts hold every frame after the
+      bootstrap of every camera;
+    - run C: the first 40 frames resident on the card (no loader, no
+      log).
+    Recorded: the loader's frames/s alone, the tracked-frame wall medians
+    (A: loader-fed; C: resident), synchronizing calls a tracked frame with
+    the feature log off (A) and on (B), checkpoint save and load wall,
+    and TV-L1 flow on a 3x480x640 pair of these frames on the card (held
+    against the CPU within FLOW_TOL px). Every run and check of the phase
+    is made; the phase fails at its end if any check failed, naming them
+    all."""
+    import tempfile
+    from coslam_torch import cli
+    from coslam_torch.io.ate import ate_rmse, camera_centers
+    from coslam_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from coslam_torch.io.export import export_results, load_campose
+    from coslam_torch.io.loader import FrameLoader, native_lib
+    from coslam_torch.io.synthetic import (apply_distortion_warp, make_room,
+                                           render_sequence)
+    from coslam_torch.ops.flow import tvl1_flow
+    from coslam_torch.slam.pipeline import CoSlamEngine
+    n, C = DIST_FRAMES, 3
+    t0 = time.perf_counter()
+    frames, Rs_gt, ts_gt, kc = distorted_scene(n, "cuda")
+    torch.cuda.synchronize()
+    log(f"distorted_io: rendered and warped {tuple(frames.shape)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    # a few views against the CPU's render and warp
+    rng = np.random.default_rng(0)
+    rng.uniform()
+    planes = make_room(rng, size=10.0)
+    views = [(0, 0), (n // 2, 1), (n - 1, 2)]
+    cpu = torch.stack([apply_distortion_warp(
+        render_sequence(planes, KPROD, Rs_gt[c, f][None], ts_gt[c, f][None],
+                        H, W, frames=[f], device="cpu")[0], KPROD, kc[c])
+        for f, c in views])
+    render_agreement(torch.stack([frames[f, c] for f, c in views]), cpu,
+                     "distorted_io (warped)")
+    frames_u8 = frames.clamp(0, 255).round().to(torch.uint8).cpu().numpy()
+    resident = torch.as_tensor(frames_u8[:DIST_RESIDENT],
+                               device="cuda").float()
+    c_gt = camera_centers(Rs_gt[0], ts_gt[0])
+    path = float(np.linalg.norm(np.diff(c_gt, axis=0), axis=-1).sum())
+    counters = kernel_counters()
+    with tempfile.TemporaryDirectory() as root:
+        inp = write_inputs(root, frames_u8, kc)
+        videos = [os.path.join(root, f"cam{c}.csrw") for c in range(C)]
+        t0 = time.perf_counter()
+        native_lib()                    # g++ builds the loader once
+        log(f"distorted_io: native loader built in "
+            f"{time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        ld = FrameLoader(videos)
+        n_read = sum(1 for _ in ld)
+        ld.close()
+        loader_fps = n_read / (time.perf_counter() - t0)
+        log(f"distorted_io: native loader {n_read} frames of {C}x{H}x{W} "
+            f"alone at {loader_fps:.2f} frames/s (native={ld.native}); "
+            f"card {card}")
+        # run A: the CLI end to end
+        out = os.path.join(root, "results")
+        for fn in counters.values():
+            fn.launches = 0
+        with SyncCounter() as sc, FrameClock(sc) as clock_a:
+            eng_a = cli.main([inp, "--out", out])
+        launches = {k: fn.launches for k, fn in counters.items()}
+        trajs_a = [load_campose(os.path.join(out, f"{c}_campose.txt"))
+                   for c in range(C)]
+        ates = [ate_rmse(*trajs_a[c], Rs_gt[c], ts_gt[c]) for c in range(C)]
+        mappts = np.loadtxt(os.path.join(out, "mappts.txt"), ndmin=2)
+        with open(os.path.join(out, "input_videos.txt")) as f:
+            sources = f.read().splitlines()
+        med_a, p90_a, syncs_a = clock_a.tracked(eng_a)
+        log(f"distorted_io: CLI run bootstrap {boot_frame(eng_a)} keyframes "
+            f"{eng_a.kf_frames} groups {eng_a.group_id.tolist()} "
+            f"map points {len(mappts)}")
+        log(f"distorted_io: ATE per camera {[round(a, 6) for a in ates]} "
+            f"over a {path:.4f} camera-0 path "
+            f"({[round(100 * a / path, 4) for a in ates]}%)")
+        log(f"distorted_io: CLI run (loader-fed, no feature log): tracked-"
+            f"frame wall median {med_a:.3f} ms, p90 {p90_a:.3f} ms, "
+            f"{syncs_a:.3f} synchronizing "
+            f"calls a tracked frame; kernel launches {launches}; card {card}")
+        failed = failed_checks("distorted_io CLI", {
+            "native loader": ld.native and n_read == n,
+            "every frame posed": all(R.shape == (n, 3, 3) for R, _ in trajs_a)
+            and all(np.isfinite(R).all() and np.isfinite(t).all()
+                    for R, t in trajs_a),
+            "rotations orthonormal": all(np.abs(np.einsum(
+                "fij,fik->fjk", R, R) - np.eye(3)).max() < 1e-2
+                for R, _ in trajs_a),
+            "every camera's ATE < 3% of the camera-0 path":
+                max(ates) < 0.03 * path,
+            "mappts.txt parses": mappts.shape[0] > 0
+            and mappts.shape[1] == 13 and np.isfinite(mappts).all(),
+            "input_videos.txt lists the videos": sources == videos,
+            "build_pyramid on every frame": launches["build_pyramid"] == n,
+            "klt_track on every tracked frame":
+                launches["klt_track"] == n - 1,
+            **launch_checks(launches, search=False)})
+        # run B: checkpoint at frame 60 and resume
+        ck = os.path.join(root, "ck.npz")
+        eng_b = CoSlamEngine(production_cfg(C), np.repeat(KPROD[None], C, 0),
+                             kc, log_features=True)
+        ld = FrameLoader(videos)
+        with SyncCounter() as sc, FrameClock(sc) as clock_b:
+            for f, fr in zip(range(DIST_RESUME), ld):
+                if f == DIST_SAVE:
+                    t0 = time.perf_counter()
+                    save_checkpoint(ck, eng_b)
+                    save_ms = (time.perf_counter() - t0) * 1e3
+                    saved = dict(frame=eng_b.frame,
+                                 kf_frames=list(eng_b.kf_frames),
+                                 group_id=eng_b.group_id.copy(),
+                                 merge_log=list(eng_b.merge_log),
+                                 pyr=[a.clone() for a in eng_b.pyr_prev.imgs])
+                eng_b.process_frame(fr)
+        ld.close()
+        med_b, _, syncs_b = clock_b.tracked(eng_b)
+        t0 = time.perf_counter()
+        eng_r = load_checkpoint(ck, CoSlamEngine(
+            production_cfg(C), np.repeat(KPROD[None], C, 0), kc))
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        loaded = {
+            "frame": eng_r.frame == saved["frame"] == DIST_SAVE,
+            "keyframes": eng_r.kf_frames == saved["kf_frames"],
+            "groups": np.array_equal(eng_r.group_id, saved["group_id"]),
+            "merge log": eng_r.merge_log == saved["merge_log"],
+            "reference pyramid": eng_r.pyr_prev is not None
+            and all(a.is_cuda and torch.equal(a, b) for a, b in
+                    zip(eng_r.pyr_prev.imgs, saved["pyr"])),
+        }
+        ck_bytes = os.path.getsize(ck)
+        ld = FrameLoader(videos, start_frames=[DIST_SAVE] * C)
+        for _, fr in zip(range(DIST_RESUME - DIST_SAVE), ld):
+            eng_r.process_frame(fr)
+        ld.close()
+        feat_dir = os.path.join(root, "results_b")
+        export_results(feat_dir, eng_b)
+        feat_frames = []
+        for c in range(C):
+            fp = np.loadtxt(os.path.join(feat_dir, f"{c}_featpts.txt"),
+                            ndmin=2)
+            feat_frames.append(sorted(set(fp[:, 0].astype(int).tolist())))
+    boot_b = boot_frame(eng_b)
+    # the tracked poses (the resumed engine's chain correction would use
+    # its own keyframes)
+    trajs_b = [eng_b.trajectory(c, False) for c in range(C)]
+    trajs_r = [eng_r.trajectory(c, False) for c in range(C)]
+    path_b = float(np.linalg.norm(np.diff(camera_centers(
+        *trajs_b[0])[boot_b:], axis=0), axis=-1).sum())
+    resume = [centre_rms(trajs_r[c], trajs_b[c]) for c in range(C)]
+    boot_a = boot_frame(eng_a)
+    drift = [aligned_rms(tuple(a[boot_b:DIST_RESUME] for a in
+                               eng_a.trajectory(c, False)),
+                         tuple(b[boot_b:] for b in trajs_b[c]))
+             for c in range(C)] if boot_a == boot_b else None
+    bound = max([0.01 * path_b] + (drift or []))
+    log(f"distorted_io: checkpoint save {save_ms:.2f} ms, load "
+        f"{load_ms:.2f} ms ({ck_bytes} B); "
+        f"card {card}")
+    log(f"distorted_io: bootstrap run A {boot_a}, run B {boot_b}; resumed "
+        f"against uninterrupted: centre RMS per camera "
+        f"{[round(r, 6) for r in resume]} "
+        f"({[round(100 * r / path_b, 4) for r in resume]}% of run B's "
+        f"camera-0 path {path_b:.4f}); runs A and B apart (Sim(3)-aligned) "
+        f"by {drift and [round(100 * d / path_b, 4) for d in drift]}%; "
+        f"bound {bound:.6f}")
+    _, _, syncs_a100 = clock_a.tracked(eng_a, upto=DIST_RESUME)
+    log(f"distorted_io: frames 0-{DIST_RESUME - 1} loader-fed: with the "
+        f"feature log (run B) tracked-frame wall median {med_b:.3f} ms, "
+        f"{syncs_b:.3f} synchronizing calls a tracked frame; without it "
+        f"(run A) {syncs_a100:.3f}")
+    failed += failed_checks("distorted_io resume", {
+        **{f"loaded {k}": v for k, v in loaded.items()},
+        "resumed trajectory finite": all(np.isfinite(R).all()
+                                         and np.isfinite(t).all()
+                                         for R, t in trajs_r),
+        "resumed within the bound": max(resume) <= bound,
+        "featpts: every frame after the bootstrap, every camera":
+            all(fr == list(range(boot_b, DIST_RESUME))
+                for fr in feat_frames),
+    })
+    # run C: the same frames resident on the card
+    eng_c = CoSlamEngine(production_cfg(C), np.repeat(KPROD[None], C, 0), kc)
+    with SyncCounter() as sc, FrameClock(sc) as clock_c:
+        for f in range(DIST_RESIDENT):
+            eng_c.process_frame(resident[f])
+    med_c, _, syncs_c = clock_c.tracked(eng_c)
+    med_a40, _, syncs_a40 = clock_a.tracked(eng_a, upto=DIST_RESIDENT)
+    log(f"distorted_io: frames 0-{DIST_RESIDENT - 1}: tracked-frame wall "
+        f"median loader-fed {med_a40:.3f} ms (run A) against resident "
+        f"{med_c:.3f} ms (run C, bootstrap {boot_frame(eng_c)}); "
+        f"synchronizing calls a tracked frame {syncs_a40:.3f} and "
+        f"{syncs_c:.3f}; card {card}")
+    # TV-L1 flow on a pair of these frames, card against CPU
+    pair = frames[0], frames[1]
+    flow = tvl1_flow(*pair)
+    flow_cpu = tvl1_flow(pair[0].cpu(), pair[1].cpu())
+    diff = (flow.cpu() - flow_cpu).abs()
+    flow_ms = eager_time_ms(lambda: tvl1_flow(*pair), reps=1, trials=3)
+    log(f"distorted_io: tvl1_flow {tuple(flow.shape)} on the card "
+        f"{flow_ms:.3f} ms (eager, CUDA events); against the CPU max diff {float(diff.max())} px, "
+        f"median {float(diff.median())} px; card {card}")
+    failed += failed_checks("distorted_io flow", {
+        "finite": bool(torch.isfinite(flow).all()),
+        f"card within {FLOW_TOL} px of the CPU": float(diff.max()) <= FLOW_TOL,
+    })
+    if failed:
+        raise AssertionError(f"checks failed: {failed}")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile-table", default=None,
@@ -1536,8 +1905,10 @@ def main():
     lap("splitmerge profile")
     loop = phase_mono_loop_path(smi)
     lap("mono_loop")
+    dist = phase_distorted_io(smi)
+    lap("distorted_io")
     by_path = {"mono": mono, "modes": modes, "threecam_dyn": multi,
-               "splitmerge": split, "mono_loop": loop}
+               "splitmerge": split, "mono_loop": loop, "distorted_io": dist}
     general = per_shape.pop("general_radius")
     repo = "coslam_tpu"
     meta = {

@@ -82,6 +82,21 @@ def sampson_error(F: torch.Tensor, x1: torch.Tensor,
     return num / torch.clamp(den, min=1e-12)
 
 
+def sample_indices(gen: torch.Generator, mask: torch.Tensor,
+                   num_hypotheses: int, sample_size: int) -> torch.Tensor:
+    """[num_hypotheses, sample_size] indices drawn uniformly, with
+    replacement, from the rows where ``mask`` holds (all 0 if none)."""
+    valid_idx = torch.nonzero(mask.cpu())[:, 0]
+    pick = torch.randint(0, max(len(valid_idx), 1),
+                         (num_hypotheses, sample_size), generator=gen)
+    return valid_idx[pick] if len(valid_idx) else pick.zero_()
+
+
+def sample_seed(gen: torch.Generator) -> int:
+    """A seed for the 5-point solver's numpy sampler."""
+    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen))
+
+
 class RansacResult(NamedTuple):
     F: torch.Tensor           # [3, 3] best model (refit on inliers)
     inliers: torch.Tensor     # [N] bool
@@ -99,11 +114,8 @@ def ransac_fundamental(gen: torch.Generator, x1: torch.Tensor,
     replacement over the valid correspondences, as the JAX package's
     categorical draw). x1, x2: [N, 2]; mask: [N]. thresh is on Sampson
     error."""
-    valid_idx = torch.nonzero(mask.cpu())[:, 0]
-    pick = torch.randint(0, max(len(valid_idx), 1),
-                         (num_hypotheses, sample_size), generator=gen)
-    idx = valid_idx[pick].to(x1.device) if len(valid_idx) else \
-        torch.zeros_like(pick).to(x1.device)
+    idx = sample_indices(gen, mask, num_hypotheses, sample_size).to(
+        x1.device)
     s_x1 = x1[idx]            # [S, 8, 2]
     s_x2 = x2[idx]
     w = torch.ones(idx.shape, dtype=x1.dtype, device=x1.device)
@@ -132,7 +144,7 @@ def ransac_essential(gen: torch.Generator, x1n: torch.Tensor,
     if n_hyp_5pt <= 0 or int(torch.sum(mask)) < 5:
         return res8
     from coslam_torch.geometry.fivepoint import ransac_essential_5pt
-    seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen))
+    seed = sample_seed(gen)
     E5, inl5, n5 = ransac_essential_5pt(
         x1n.cpu().numpy(), x2n.cpu().numpy(), mask.cpu().numpy(),
         n_hyp=n_hyp_5pt, thresh=thresh, seed=seed)

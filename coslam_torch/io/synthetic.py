@@ -1,12 +1,14 @@
 """Synthetic textured room with ground-truth trajectories (the port of
-``coslam_tpu/io/synthetic.py`` without its distortion warp).
+``coslam_tpu/io/synthetic.py``).
 
 World = textured planes (floor, ceiling, back and side walls) plus
 optional moving textured quads (the dynamic objects); rendering ray-casts
 every pixel to the nearest plane and fetches its texture bilinearly. With
 the same numpy generator the textures, rigs and trajectories equal the
 JAX package's, so a run can make its own frames and ground truth on the
-device it runs on.
+device it runs on. ``render_batch`` renders views in chunks of batched
+calls; ``apply_distortion_warp`` turns ideal-pinhole renders into what a
+lens with distortion coefficients kc captures.
 """
 
 from __future__ import annotations
@@ -16,8 +18,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from coslam_torch.geometry.camera import (normalized_to_pixel,
+                                          pixel_to_normalized,
+                                          undistort_normalized)
 from coslam_torch.geometry.se3 import so3_exp_np
 from coslam_torch.ops.image import gaussian_blur
+from coslam_torch.ops.patches import sample_bilinear
 from coslam_torch.util import resolve_device
 
 
@@ -162,6 +168,56 @@ def render_sequence(planes, K, Rs, ts, h, w, quads=None, frames=None,
             p0b = torch.cat([p0[:-Q], p0[-Q:] + float(fr[b]) * vel])
         out.append(_render(p0b, eu, ev, tex, Kt, Rt[b], tt[b], h, w))
     return torch.stack(out)
+
+
+def render_batch(planes, K, Rs, ts, h, w, quads=None, frames=None,
+                 chunk: int = 8, device=None) -> torch.Tensor:
+    """``render_sequence`` in chunks of ``chunk`` views, each chunk one
+    batched call (``torch.func.vmap`` of the one-view renderer): Rs
+    [B, 3, 3], ts [B, 3], ``frames`` [B] each view's frame index for the
+    moving quads (default 0..B-1). The per-view [P, H, W, 3]
+    intermediates bound the chunk. Returns [B, H, W] f32 on ``device``."""
+    dev = resolve_device(device)
+    (p0, eu, ev, tex), vel = _with_quads(planes, quads, dev)
+    Kt = torch.as_tensor(np.asarray(K, np.float32), device=dev)
+    Rt = torch.as_tensor(np.asarray(Rs, np.float32), device=dev)
+    tt = torch.as_tensor(np.asarray(ts, np.float32), device=dev)
+    B = Rt.shape[0]
+    fr = torch.as_tensor(np.arange(B) if frames is None
+                         else np.asarray(frames), dtype=torch.float32,
+                         device=dev)
+    views = torch.func.vmap(_render, in_dims=(0, None, None, None, None, 0,
+                                              0, None, None))
+    out = []
+    for s in range(0, B, chunk):
+        e = min(s + chunk, B)
+        p0b = p0.expand(e - s, *p0.shape)
+        if vel is not None:
+            Q = vel.shape[0]
+            q0 = p0[-Q:] + fr[s:e, None, None] * vel           # [b, Q, 3]
+            p0b = torch.cat([p0b[:, :-Q], q0], dim=1)
+        out.append(views(p0b, eu, ev, tex, Kt, Rt[s:e], tt[s:e], h, w))
+    return torch.cat(out)
+
+
+def apply_distortion_warp(img: torch.Tensor, K, kc) -> torch.Tensor:
+    """Turn an ideal-pinhole rendering [H, W] (or a batch [B, H, W]) into
+    what a camera with distortion coefficients kc captures:
+    I_d(p) = I_ideal(K D^-1(K^-1 p)), sampled bilinearly with clamped
+    borders (``ops/patches.py::sample_bilinear``), on ``img``'s device."""
+    dev = img.device
+    Kt = torch.as_tensor(np.asarray(K, np.float32), device=dev)
+    kct = torch.as_tensor(np.asarray(kc, np.float32), device=dev)
+    h, w = img.shape[-2:]
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    p = torch.stack([xs, ys], dim=-1)
+    src = normalized_to_pixel(
+        undistort_normalized(pixel_to_normalized(p, Kt), kct), Kt)
+    if img.dim() == 3:
+        return torch.stack([sample_bilinear(im, src)[0] for im in img])
+    return sample_bilinear(img, src)[0]
 
 
 def render(planes: list[Plane], K: np.ndarray, R: np.ndarray, t: np.ndarray,

@@ -11,16 +11,14 @@ together. Nothing here runs at import.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
-import tempfile
 import time
 from pathlib import Path
 
+from coslam_torch.util import finish_compile, hashed_build_dir, start_compile
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -62,10 +60,8 @@ def _nvcc() -> str:
 
 
 def build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(SIGNATURES):
-        h.update((CSRC / f"{name}.cu").read_bytes())
-    return BUILD / h.hexdigest()[:16]
+    return hashed_build_dir(NVCC_FLAGS, [CSRC / f"{name}.cu"
+                                         for name in sorted(SIGNATURES)])
 
 
 def build_all() -> dict:
@@ -77,24 +73,20 @@ def build_all() -> dict:
     t0 = time.perf_counter()
     procs = {}
     for name in SIGNATURES:
-        if (out_dir / f"lib{name}.so").exists():
+        out = out_dir / f"lib{name}.so"
+        if out.exists():
             continue
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
         log = open(out_dir / f"{name}.log", "w")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=log,
-                                        stderr=subprocess.STDOUT), tmp, log)
+        proc, tmp = start_compile(
+            [_nvcc(), *NVCC_FLAGS, str(CSRC / f"{name}.cu")], out, log)
+        procs[name] = (proc, tmp, log)
     info = {}
     failed = []
     for name, (proc, tmp, log) in procs.items():
-        rc = proc.wait()
+        ok = finish_compile(proc, tmp, out_dir / f"lib{name}.so")
         log.close()
-        if rc != 0:
+        if not ok:
             failed.append(name)
-            os.unlink(tmp)
-        else:
-            os.replace(tmp, out_dir / f"lib{name}.so")
     seconds = time.perf_counter() - t0
     for name in SIGNATURES:
         log = out_dir / f"{name}.log"

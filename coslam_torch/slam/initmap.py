@@ -42,8 +42,10 @@ class InitMapResult(NamedTuple):
     cam_order: list[int]
 
 
-def _pairwise_matches(cfg: SlamConfig, K, kc, pos, valid, blocks, blk_ok):
-    """NCC + F-RANSAC verified matches for every camera pair. Returns
+def _pairwise_matches(cfg: SlamConfig, K, kc, pos, at, valid, blocks,
+                      blk_ok):
+    """NCC + F-RANSAC verified matches for every camera pair; ``at`` [C,
+    N, 2] are the pixels that ``kc`` undistorts. Returns
     ({(i, j): a_to_b [N] numpy, slot of camera j matched to slot of
     camera i or -1}, counts [C, C])."""
     C, N = valid.shape
@@ -64,8 +66,8 @@ def _pairwise_matches(cfg: SlamConfig, K, kc, pos, valid, blocks, blk_ok):
                 # F-RANSAC verification on normalized coordinates, padded
                 # to N rows as the JAX package pads its static shapes
                 pair_a = np.nonzero(sel)[0]
-                xa = cam.normalize_points(pos[i], K[i], kc[i])
-                xb = cam.normalize_points(pos[j], K[j], kc[j])
+                xa = cam.normalize_points(at[i], K[i], kc[i])
+                xb = cam.normalize_points(at[j], K[j], kc[j])
                 x1 = torch.zeros((N, 2), dtype=xa.dtype, device=dev)
                 x2 = torch.zeros_like(x1)
                 n = len(pair_a)
@@ -151,29 +153,38 @@ def _chain_tracks(order, matches, N):
 
 
 def init_map_multicam(cfg: SlamConfig, K: torch.Tensor, kc: torch.Tensor,
-                      pyr, pos: torch.Tensor,
-                      valid: torch.Tensor) -> InitMapResult:
+                      pyr, pos: torch.Tensor, valid: torch.Tensor,
+                      raw: torch.Tensor | None = None) -> InitMapResult:
     """K [C, 3, 3], kc [C, 5]; pyr: the camera-batched pyramid of the
     frame; pos [C, N, 2] corner positions (undistorted px), valid [C, N].
     Returns the cameras' poses, the reconstructed points, their
-    covariances and per-camera feature slots (``ok`` False on failure)."""
+    covariances and per-camera feature slots (``ok`` False on failure).
+
+    ``raw`` [C, N, 2], the same corners on the distorted image: the NCC
+    blocks are cut there and ``raw`` is what ``kc`` undistorts. Without
+    it the init does what the JAX package's does, which cuts the blocks at
+    ``pos`` on the distorted image and undistorts ``pos`` a second time
+    (``coslam_tpu/slam/initmap.py:176-188``): the same thing where
+    ``kc`` is zero, but under the reference's lens distortion a misplaced
+    block and a warped geometry (ROADMAP.md, C3)."""
     C, N = valid.shape
     p = cfg.p
     dev = pos.device
     f32 = torch.float32
     fail = InitMapResult(False, None, None, None, None, None, [])
-    per_cam = [extract_ncc_blocks(pyr.imgs[0][c], pos[c], p.ncc_patch_radius)
+    at = pos if raw is None else raw
+    per_cam = [extract_ncc_blocks(pyr.imgs[0][c], at[c], p.ncc_patch_radius)
                for c in range(C)]
     blocks = torch.stack([b for b, _ in per_cam])
     blk_ok = torch.stack([o for _, o in per_cam])
-    matches, counts = _pairwise_matches(cfg, K, kc, pos, valid, blocks,
-                                        blk_ok)
+    matches, counts = _pairwise_matches(cfg, K, kc, pos, at, valid,
+                                        blocks, blk_ok)
     order = _camera_order(counts)
     obs = _chain_tracks(order, matches, N)
     if obs.shape[0] < 30:
         return fail
     pos_np = pos.cpu().numpy()
-    xn = [cam.normalize_points(pos[c], K[c], kc[c]).cpu().numpy()
+    xn = [cam.normalize_points(at[c], K[c], kc[c]).cpu().numpy()
           for c in range(C)]
     # seed pair: the best-matched pair
     ci, cj = np.unravel_index(np.argmax(counts), counts.shape)

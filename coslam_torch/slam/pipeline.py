@@ -36,6 +36,10 @@ The engine modes of the reference:
   then the lifecycle update.
 - ``profile``: ``timing`` accumulates wall seconds per stage (``_tick``),
   synchronizing the card first.
+- ``log_features``: ``feat_log`` gets (frame, camera, map ids, pixels) of
+  every mapped feature after each frame past the bootstrap (the
+  reference's per-frame feature export), pulled after the cadence (one
+  wait).
 
 Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
 multi-device meshes and BA on another card (A18).
@@ -159,7 +163,8 @@ class CoSlamEngine:
     def __init__(self, cfg: SlamConfig, K, kc, device=None,
                  profile: bool = False, use_fused: bool = True,
                  async_ba: bool = False, ba_device=None,
-                 overlap: bool = False, chunk: int = 1, mesh=None):
+                 overlap: bool = False, chunk: int = 1, mesh=None,
+                 log_features: bool = False):
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device meshes are not ported yet: ROADMAP.md item A18")
@@ -176,6 +181,8 @@ class CoSlamEngine:
         self.ba_device = ba_device
         self.overlap = overlap
         self.chunk = max(1, int(chunk))
+        self.log_features = log_features
+        self.feat_log: list[tuple] = []    # (frame, cam, ids, xy)
         self.timing: dict[str, float] = {}
         C = cfg.num_cameras
         K = torch.as_tensor(np.asarray(K, np.float32))
@@ -183,6 +190,7 @@ class CoSlamEngine:
             raise ValueError(f"K must be [{C}, 3, 3], got {tuple(K.shape)}")
         self.K = K.to(self.device)
         self.kc = torch.as_tensor(np.asarray(kc, np.float32)).to(self.device)
+        self.distorted = bool(np.any(np.asarray(kc, np.float32) != 0))
         self.state = init_state(cfg, self.device)
         self.pyr_prev = None
         self.frame = 0
@@ -252,6 +260,13 @@ class CoSlamEngine:
         self.timing[name] = self.timing.get(name, 0.0) + (t1 - t0)
         return t1
 
+    def resume_reference_frame(self, images):
+        """After ``io.checkpoint.load_checkpoint`` of a checkpoint without
+        the reference pyramid: rebuild the tracker's reference pyramid from
+        the last processed frame's images [C, H, W]."""
+        imgs = to_device(images, self.device).to(torch.float32)
+        self.pyr_prev = build_pyramid(imgs, self.cfg.klt.n_levels)
+
     def process_frame(self, images) -> dict:
         """Feed one frame: images [C, H, W] (numpy or tensor, float32 or
         uint8, 0..255). Returns the frame's statistics: in chunk mode a
@@ -301,6 +316,8 @@ class CoSlamEngine:
             else:
                 stats.update(self._host_cadence(pyr, fsv))
                 self._record_pose()
+            if self.log_features:
+                self._log_features()
             self.pyr_prev = pyr
             self.group_hist.append(tuple(self.group_id.tolist()))
             self.frame += 1
@@ -333,6 +350,8 @@ class CoSlamEngine:
             else:
                 stats.update(self._tracked_frame(pyr))
         self._record_pose()
+        if self.log_features and self.bootstrapped:
+            self._log_features()
         self.pyr_prev = pyr
         self.group_hist.append(tuple(self.group_id.tolist()))
         self.frame += 1
@@ -434,6 +453,8 @@ class CoSlamEngine:
             n_static=int(fs_last.n_static),
             n_dynamic=int(fs_last.n_dynamic), frame=self.frame)
         self.stats_log[-1].update(cstats)
+        if self.log_features:
+            self._log_features()
         self.frame = f0 + n
         self._tick("cadence_total", t0)
         return self.stats_log[-1]
@@ -487,10 +508,15 @@ class CoSlamEngine:
 
     def _bootstrap_multicam(self, pyr) -> bool:
         """Wide-baseline bootstrap between the cameras (initMapMultiCam):
-        frame 0, retried on every frame until it succeeds."""
+        frame 0, retried on every frame until it succeeds. Under lens
+        distortion the init reads the corners on the distorted image
+        (``raw``) where the JAX package's reads them undistorted and
+        undistorts them twice (ROADMAP.md, C3); without distortion it is
+        the JAX package's call."""
         st = self.state
         res = init_map_multicam(self.cfg, self.K, self.kc, pyr,
-                                st.tracks.pos, st.tracks.valid)
+                                st.tracks.pos, st.tracks.valid,
+                                raw=st.tracks.raw if self.distorted else None)
         if not res.ok:
             return False
         C, N = st.tracks.valid.shape
@@ -635,6 +661,16 @@ class CoSlamEngine:
             dyn=(fs.dyn_ids, fs.dyn_xyz), n_static=int(fs.n_static),
             n_dynamic=int(fs.n_dynamic),
             frame=self.frame if frame is None else frame)
+
+    def _log_features(self):
+        """(frame, camera, ids, xy) of every mapped feature of the current
+        state into ``feat_log``."""
+        tr = self.state.tracks
+        pos, mpt, valid = to_host(tr.pos, tr.mpt, tr.valid)
+        ok = valid & (mpt >= 0)
+        for c in range(self.cfg.num_cameras):
+            sel = np.nonzero(ok[c])[0]
+            self.feat_log.append((self.frame, c, mpt[c, sel], pos[c, sel]))
 
     def _tracked_frame(self, pyr) -> dict:
         """The non-fused path (``use_fused=False``): the fused step's

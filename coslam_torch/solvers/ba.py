@@ -300,8 +300,10 @@ def _schur_solve(Hcc, Wcp, Hpp, gc, gp, lam, cam_fixed, point_fixed):
     S = S * free[:, None, None, None] * free[None, None, :, None]
     S[ar, :, ar, :] += eye6[None] * cam_fixed[:, None, None].to(dt)
     rhs = rhs * free[:, None]
-    dc = -torch.linalg.solve(S.reshape(M * 6, M * 6),
-                             rhs.reshape(-1)).reshape(M, 6)
+    # solve_ex: a singular system gives a non-finite step, which the caller
+    # rejects (as jnp.linalg.solve's does), instead of raising
+    dc = -torch.linalg.solve_ex(S.reshape(M * 6, M * 6),
+                                rhs.reshape(-1))[0].reshape(M, 6)
     # back-substitute the points: dX = -Hpp^{-1} (gp + W^T dc)
     Wt_dc = torch.einsum("pmis,mi->ps", Wcp, dc)
     dX = -torch.einsum("pst,pt->ps", Hpp_inv, gp + Wt_dc)

@@ -1,10 +1,12 @@
 """Per-camera 3D->2D pose refinement: Tukey-IRLS damped Levenberg-Marquardt
-(the port of ``coslam_tpu/solvers/pose.py::irls_pose``).
+(the port of ``coslam_tpu/solvers/pose.py``: ``irls_pose`` and its
+epipolar-augmented variant ``irls_pose_epi``).
 
 Analytic Jacobians on the se(3) left-increment, branch-free accept/reject
 by ``torch.where``; the camera axis is an explicit leading batch axis (the
 JAX package vmaps a single-camera solver), so one call solves every
-camera.
+camera. ``irls_pose_epi`` solves one camera, with forward-mode Jacobians
+(``torch.func.jacfwd``) as the JAX package takes them.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from coslam_torch.geometry.epipolar import fundamental_from_poses
 from coslam_torch.geometry.robust import huber_weight, tukey_weight
 from coslam_torch.geometry.se3 import orthonormalize_fast, se3_exp
 
@@ -151,3 +154,85 @@ def irls_pose(K, R0, t0, X, px, valid, tau=10.0, n_irls: int = 5,
     if single:
         out = IRLSPoseResult(*(a[0] for a in out))
     return out
+
+
+def _residuals(K, R, t, X, px):
+    """One camera, points first: (reprojection residuals [N, 2], Xc)."""
+    Xc = X @ R.T + t
+    xn = Xc[:, :2] / _safe_z(Xc[:, 2])[:, None]
+    pr = torch.stack([K[0, 0] * xn[:, 0] + K[0, 2],
+                      K[1, 1] * xn[:, 1] + K[1, 2]], dim=-1)
+    return pr - px, Xc
+
+
+def irls_pose_epi(K, R0, t0, X, px, valid3, prev_R, prev_t, px_prev,
+                  valid2, tau: float = 10.0, epi_weight: float = 1.0,
+                  n_irls: int = 4, n_lm: int = 8) -> IRLSPoseResult:
+    """``intraCamEstimateEpi`` equivalent (SL_IntraCamPose.h:117-125) for
+    one camera: the 3D->2D objective augmented with 2D-2D epipolar terms
+    against the previous pose, so unmapped but tracked features still
+    constrain the pose when mapped points are scarce.
+
+    K [3, 3]; (R0, t0) the initial pose; X [N, 3], px [N, 2], valid3 [N]
+    the mapped points; px_prev [N, 2] the same feature slots' pixels at the
+    previous pose (prev_R, prev_t), valid2 [N] the epipolar terms. The
+    Jacobians of both residuals come from forward-mode differentiation on
+    the se(3) increment."""
+    base3 = valid3.to(X.dtype)
+    base2 = valid2.to(X.dtype) * epi_weight
+    ph = torch.cat([px_prev, torch.ones_like(px_prev[:, :1])], -1)
+    ch = torch.cat([px, torch.ones_like(px[:, :1])], -1)
+
+    def residuals(xi, R, t):
+        # se3_exp of a [1, 6] twist: forward-mode AD through its 0-dim
+        # intermediates mixes float64 into float32 (torch 2.x)
+        dR, dt = se3_exp(xi[None])
+        dR, dt = dR[0], dt[0]
+        Rn = dR @ R
+        tn = dR @ t + dt
+        r3, _ = _residuals(K, Rn, tn, X, px)
+        F = fundamental_from_poses(K, prev_R, prev_t, K, Rn, tn)
+        lines = ph @ F.T
+        r2 = torch.sum(ch * lines, -1) / torch.clamp(
+            torch.linalg.norm(lines[:, :2], dim=-1), min=1e-9)
+        return r3, r2
+
+    def weighted_cost(r3, r2, w3, w2):
+        return torch.sum(w3 * torch.sum(r3 * r3, -1)) + torch.sum(w2 * r2 * r2)
+
+    zero = torch.zeros(6, dtype=X.dtype, device=X.device)
+    R, t = R0, t0
+    for _ in range(n_irls):
+        r3, r2 = residuals(zero, R, t)
+        e3 = torch.linalg.norm(r3, dim=-1)
+        e2 = torch.abs(r2)
+        # Tukey on every pass, Huber only when Tukey rejects nearly all
+        t3 = tukey_weight(e3, tau)
+        t2 = tukey_weight(e2, tau)
+        n_live = torch.sum(base3 * (t3 > 0)) + torch.sum(base2 * (t2 > 0))
+        w3 = base3 * torch.where(n_live >= 6, t3, huber_weight(e3, tau))
+        w2 = base2 * torch.where(n_live >= 6, t2, huber_weight(e2, tau))
+        lam = torch.tensor(1e-3, dtype=X.dtype, device=X.device)
+        for _ in range(n_lm):
+            r3, r2 = residuals(zero, R, t)
+            J3, J2 = torch.func.jacfwd(residuals)(zero, R, t)  # [N,2,6], [N,6]
+            H = torch.einsum("n,nki,nkj->ij", w3, J3, J3) \
+                + torch.einsum("n,ni,nj->ij", w2, J2, J2)
+            g = torch.einsum("n,nki,nk->i", w3, J3, r3) \
+                + torch.einsum("n,ni,n->i", w2, J2, r2)
+            cost = weighted_cost(r3, r2, w3, w2)
+            Hd = H + lam * torch.diag(torch.diagonal(H) + 1e-6)
+            delta = -torch.linalg.solve_ex(Hd, g)[0]
+            cost_new = weighted_cost(*residuals(delta, R, t), w3, w2)
+            ok = (cost_new < cost) & torch.all(torch.isfinite(delta))
+            dR, dt = se3_exp(torch.where(ok, delta, zero))
+            R = dR @ R
+            t = dR @ t + dt
+            lam = torch.clamp(torch.where(ok, lam * 0.3, lam * 5.0),
+                              1e-8, 1e8)
+    R = orthonormalize_fast(R)
+    r3, _ = _residuals(K, R, t, X, px)
+    err = torch.linalg.norm(r3, dim=-1)
+    w_final = base3 * tukey_weight(err, tau)
+    return IRLSPoseResult(R=R, t=t, weights=w_final, err=err,
+                          cost=torch.sum(w_final * err * err))

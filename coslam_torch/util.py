@@ -1,10 +1,55 @@
-"""Small tensor helpers shared across the package: device selection, the
+"""Small helpers shared across the package: device selection, the
 NaN-aware median, batched host copies, host arrays moved to the card
-without a wait, and JAX-style dropping scatters."""
+without a wait, JAX-style dropping scatters, and the build cache of the
+compiled libraries (the CUDA kernels and the native frame loader)."""
 
 from __future__ import annotations
 
+import hashlib
+import os
+import subprocess
+import tempfile
+from pathlib import Path
+
 import torch
+
+BUILD_ROOT = Path(__file__).resolve().parents[1] / "build"
+
+
+def hashed_build_dir(flags: list[str], sources) -> Path:
+    """``build/<hash>/`` at the repository root for a compile of
+    ``sources`` with ``flags``: a change to either gives a new directory."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        h.update(Path(src).read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def start_compile(cmd: list[str], out: Path, log=subprocess.DEVNULL):
+    """Start ``cmd -o <a temporary file beside out>`` (its output to
+    ``log``). Returns (process, temporary path) for ``finish_compile``.
+    Raises OSError when the compiler cannot be run."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=out.suffix, dir=out.parent)
+    os.close(fd)
+    try:
+        proc = subprocess.Popen([*cmd, "-o", tmp], stdout=log,
+                                stderr=subprocess.STDOUT)
+    except OSError:
+        os.unlink(tmp)
+        raise
+    return proc, tmp
+
+
+def finish_compile(proc, tmp: str, out: Path) -> bool:
+    """Wait for a compile from ``start_compile``. On success its output
+    becomes ``out`` in one rename (a concurrent reader never sees a partial
+    library); on failure it is deleted. Returns whether it succeeded."""
+    if proc.wait() != 0:
+        os.unlink(tmp)
+        return False
+    os.replace(tmp, out)
+    return True
 
 
 def resolve_device(device=None) -> torch.device:

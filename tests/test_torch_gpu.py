@@ -5,7 +5,8 @@ and three; the loop closure's search), the wrappers' input checks, the
 kernels' general paths for radii above the tuned ones, the engine on the
 card against the same run on the CPU (one camera, and two on the rig),
 a tracked step that never waits on the host, the overlap mode's pinned
-buffers, and asynchronous BA on a side stream.
+buffers, asynchronous BA on a side stream, the batched render and the
+distortion warp, and checkpoints between the card and the CPU.
 Where no card is present each test skips (the decision is made inside
 the ``cuda`` fixture, never at import).
 
@@ -611,3 +612,64 @@ def test_async_ba_on_a_side_stream(cuda):
     torch.cuda.synchronize()
     for a, b in zip(before, tp.leaves(state_to_numpy(gpu.state))):
         np.testing.assert_array_equal(a, b)
+
+
+def test_render_batch_and_warp_on_the_card(cuda):
+    """render_batch (moving quad, per-view frame indices) and the
+    distortion warp on the card against the same calls on the CPU: the
+    band of chip_smoke.py's render check (0.25 grey levels outside 0.1% of
+    pixels, whose rays graze a seam between planes), and the warp of the
+    same image within 1e-3 grey levels."""
+    from coslam_torch.io.synthetic import (MovingQuad, apply_distortion_warp,
+                                           make_room, make_texture,
+                                           orbit_trajectory, render_batch)
+    rng = np.random.default_rng(0)
+    quad = MovingQuad(center0=np.array([-1.0, 0.5, 8.0], np.float32),
+                      velocity=np.array([0.05, 0.0, 0.0], np.float32),
+                      eu=np.array([1.6, 0, 0], np.float32),
+                      ev=np.array([0, 1.6, 0], np.float32),
+                      tex=make_texture(rng))
+    planes = make_room(rng, size=10.0)
+    Rs, ts = orbit_trajectory(10, forward=0.3, yaw_rate=0.05)
+    frames = np.arange(10)[::-1].copy()
+    out = {dev: render_batch(planes, tp.KMAT[0], Rs, ts, tp.H, tp.W,
+                             quads=[quad], frames=frames, chunk=4,
+                             device=dev) for dev in ("cpu", "cuda")}
+    assert out["cuda"].is_cuda and out["cuda"].shape == (10, tp.H, tp.W)
+    diff = (out["cuda"].cpu() - out["cpu"]).abs()
+    assert float((diff > 0.25).float().mean()) <= 1e-3
+    kc = np.array([-0.25, 0.08, 1e-3, -5e-4, 0.0], np.float32)
+    warped = apply_distortion_warp(out["cpu"].to(cuda), tp.KMAT[0], kc)
+    assert warped.is_cuda
+    want = apply_distortion_warp(out["cpu"], tp.KMAT[0], kc)
+    assert float((warped.cpu() - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("saved_on,loaded_on", [("cuda", "cpu"),
+                                                ("cpu", "cuda")])
+def test_checkpoint_between_card_and_cpu(cuda, tmp_path, saved_on,
+                                         loaded_on):
+    """A checkpoint saved by an engine on one device loads into an engine
+    on the other (state and pyramid on the loader's device) and runs on
+    within the engine bands of the CPU tests against the saver's own
+    continuation."""
+    from coslam_torch.io.ate import ate_rmse
+    from coslam_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    frames, Rs, ts = _card_frames(1, 30)
+    saver = _engine(1, saved_on, log_features=True)
+    for f in range(20):
+        saver.process_frame(frames[f].to(saved_on))
+    save_checkpoint(str(tmp_path / "ck.npz"), saver)
+    for f in range(20, 30):
+        saver.process_frame(frames[f].to(saved_on))
+    eng = load_checkpoint(str(tmp_path / "ck.npz"), _engine(1, loaded_on))
+    assert eng.frame == 20 and eng.state.R.device.type == loaded_on
+    assert eng.pyr_prev.imgs[0].device.type == loaded_on
+    for f in range(20, 30):
+        eng.process_frame(frames[f].to(loaded_on))
+    traj = eng.trajectory(0, True)
+    assert ate_rmse(*traj, Rs[0], ts[0]) < 0.20
+    gap, path = tp.aligned_gap(traj, saver.trajectory(0, True))
+    assert gap < 0.05 * path
+    assert [e[0] for e in saver.feat_log] == list(
+        range(tp.boot_frame(saver.stats_log), 30))

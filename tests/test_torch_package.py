@@ -50,6 +50,9 @@ def test_port_imports_with_jax_blocked():
                   for p in PORT.rglob("*.py"))
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods]
+    assert {"coslam_torch.cli", "coslam_torch.io.checkpoint",
+            "coslam_torch.io.loader", "coslam_torch.io.export",
+            "coslam_torch.io.viz", "coslam_torch.ops.flow"} <= set(mods)
     code = ("import sys\n"
             "for b in ('jax', 'jaxlib', 'coslam_tpu'):\n"
             "    sys.modules[b] = None\n"

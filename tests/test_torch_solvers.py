@@ -203,3 +203,27 @@ def test_solve_chain_segments_matches(rng, scales):
                  device="cpu")
     np.testing.assert_allclose(tR, np.asarray(jR), atol=1e-4)
     np.testing.assert_allclose(tt, np.asarray(jt), atol=1e-4)
+
+
+@pytest.mark.parametrize("cam_fixed", [(False, False), (True, False)])
+def test_schur_solve_of_a_singular_system(cam_fixed):
+    """An exactly singular reduced camera system (no damping, no
+    information) gives a non-finite step, as the JAX package's
+    ``jnp.linalg.solve`` does, which bundle_adjust rejects; it does not
+    raise (``torch.linalg.solve`` raises on a singular matrix, which
+    stopped the map init on the card)."""
+    import jax.numpy as jnp
+    from coslam_tpu.solvers.ba import _schur_solve as jsolve
+    from coslam_torch.solvers.ba import _schur_solve
+    M, P = 2, 3
+    fixed = np.array(cam_fixed)
+    args = [np.zeros(s, np.float32) for s in
+            ((M, 6, 6), (P, M, 6, 3), (P, 3, 3), (M, 6), (P, 3))]
+    want = jsolve(*map(jnp.asarray, args), 0.0, jnp.asarray(fixed),
+                  jnp.zeros(P, bool))
+    got = _schur_solve(*map(tp.t, args), 0.0, tp.t(fixed),
+                       torch.zeros(P, dtype=torch.bool))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.isfinite(tp.n(g)),
+                                      np.isfinite(np.asarray(w)))
+    assert not np.isfinite(tp.n(got[0])).all()
