@@ -33,19 +33,37 @@ points, 64 keyframes, BA window 5) in the synthetic room:
   the uninterrupted run; the loader alone, loader-fed against resident
   frames, the feature log's synchronizing calls, checkpoint save and
   load; TV-L1 flow on a pair of its frames, card against CPU;
+- fivecam_mesh, 100 of the reference's 150 frames (five cameras on a
+  rig, BASELINE config 5): the chunked engine (chunk=6) on a camera mesh,
+  one camera a shard over the visible cards round robin (["cuda:0"] * 5
+  on one card), the frames copied from the host to their shards: the
+  bootstrap by frame 2, one group, every camera's ATE, the kernels once a
+  shard, each mesh step's transfers exactly the step contract (each
+  shard's 11 track rows there and back, its NCC block pair back), no
+  synchronizing call inside the step;
 and checks that the path's kernels ran (launch counts set to 0 just
 before a path and read just after it): build_pyramid, klt_track and
 ncc_blocks on every path, ncc_search once per searching closure attempt
 on mono_loop, and extract_windows on none (it serves the plain versions
-only).
+only). Every engine path logs the peak device memory of each card, and
+the mono, modes and fivecam_mesh paths the synchronizing calls and, apart,
+the package's explicit torch.cuda.synchronize calls.
+
+The multi-device layer also gets: the two-camera engine on a mesh
+against the same engine on one card (20 frames at 150x200); run_dryrun(5)
+at 480x640; the distributed table BA over 5 point shards against the
+one-card solve on bench.py's BA problem, both timed as LM iterations/s;
+and async BA solved on another device (cuda:1, else the CPU) over the
+mono scene.
 
 Short runs at the CPU tests' size hold the engine on the card against the
 same engine on the CPU (the plain PyTorch versions, which
 tests/test_torch_*.py hold against the JAX package): one camera over 30
 frames (and the non-fused path over the same 30), two cameras over 20,
-and mono_loop cut to 150x200 over 181 frames (a loop closure).
+and mono_loop cut to 150x200 over 181 frames (a loop closure). The CPU
+runs are made by one worker process while the card's phases run.
 
-torch.profiler traces 5 tracked frames of a fresh run of mono and
+torch.profiler traces 3 tracked frames of a fresh run of mono and
 threecam_dyn, and of splitmerge around its first merge (replayed from a
 copy of the engine taken two frames before it): device-busy time,
 the device's idle share and kernel launches per frame, in all and inside
@@ -68,11 +86,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -732,11 +752,21 @@ class SyncCounter:
     """Counts the synchronizing CUDA calls made while it is entered (under
     torch.cuda.set_sync_debug_mode("warn"): a blocking copy, a stream or
     event sync), in all and inside the tracked step (``fused.frame_step``,
-    also where ``frame_steps_scan`` calls it)."""
+    also where ``frame_steps_scan`` calls it). ``explicit_syncs`` counts
+    apart the calls of ``torch.cuda.synchronize()`` that the package makes
+    (``util.to_host``, the stage clock), which the debug mode does not
+    report; this script's own (the wall clocks) are not counted."""
 
     def __init__(self):
         self.total = 0
         self.in_step = 0
+        self.explicit_syncs = 0
+
+    def _synchronize(self, device=None):
+        caller = sys._getframe(1).f_globals.get("__name__", "")
+        if caller.startswith("coslam_torch"):
+            self.explicit_syncs += 1
+        return self._sync(device)
 
     def _seen(self, message, *args, **kw):
         if "synchronizing CUDA operation" not in str(message):
@@ -757,11 +787,32 @@ class SyncCounter:
         warnings.simplefilter("always")
         warnings.showwarning = self._seen
         torch.cuda.set_sync_debug_mode("warn")
+        self._sync = torch.cuda.synchronize
+        torch.cuda.synchronize = self._synchronize
         return self
 
     def __exit__(self, *exc):
+        torch.cuda.synchronize = self._sync
         torch.cuda.set_sync_debug_mode(0)
         self._warnings.__exit__(*exc)
+
+
+def reset_peak_memory() -> dict:
+    """Set every card's peak-allocation counter to its current use.
+    Returns that use per card in MiB: what earlier phases still hold,
+    which every later peak includes."""
+    held = {}
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(d)
+        held[f"cuda:{d}"] = round(torch.cuda.memory_allocated(d) / 2 ** 20, 1)
+    return held
+
+
+def peak_memory_mib() -> dict:
+    """torch.cuda.max_memory_allocated of every card since the last
+    reset_peak_memory, in MiB."""
+    return {f"cuda:{d}": round(torch.cuda.max_memory_allocated(d) / 2 ** 20,
+                               1) for d in range(torch.cuda.device_count())}
 
 
 def run_engine(cfg, K, frames, device, snapshot_when=None,
@@ -777,7 +828,9 @@ def run_engine(cfg, K, frames, device, snapshot_when=None,
     SyncCounter). Merge and loop attempts are timed into
     ``engine.attempts``. Before each frame for which
     ``snapshot_when(engine)`` holds, a copy of the engine is kept (untimed)
-    in ``engine.snapshots``: the last three, as (frame, copy)."""
+    in ``engine.snapshots``: the last three, as (frame, copy). The peak
+    device memory of the run, per card, is kept in ``engine.peak_mem``, and
+    what was allocated when the run started in ``engine.held_mem``."""
     import collections
     import contextlib
     from coslam_torch.slam.pipeline import CoSlamEngine
@@ -791,6 +844,7 @@ def run_engine(cfg, K, frames, device, snapshot_when=None,
         fn.launches = 0
     frame_ms = []
     eng.syncs = SyncCounter() if count_syncs else None
+    held = reset_peak_memory() if device != "cpu" else None
     with eng.syncs or contextlib.nullcontext():
         for f in range(frames.shape[0]):
             if snapshot_when is not None and snapshot_when(eng):
@@ -801,6 +855,8 @@ def run_engine(cfg, K, frames, device, snapshot_when=None,
                 torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
     launches = {name: fn.launches for name, fn in counters.items()}
+    eng.peak_mem = peak_memory_mib() if device != "cpu" else None
+    eng.held_mem = held
     return eng, np.asarray(frame_ms), launches
 
 
@@ -859,7 +915,12 @@ def phase_main_path(card: str):
     n_trk = sum("med_err" in s for s in eng.stats_log)
     log(f"main path: {eng.syncs.total} synchronizing calls over {n_trk} "
         f"tracked frames ({eng.syncs.total / n_trk:.3f} a tracked frame), "
-        f"{eng.syncs.in_step} inside frame_step; card {card}")
+        f"{eng.syncs.in_step} inside frame_step; explicit "
+        f"torch.cuda.synchronize {eng.syncs.explicit_syncs} "
+        f"({eng.syncs.explicit_syncs / n_trk:.3f} a tracked frame); card "
+        f"{card}")
+    log(f"main path: peak device memory {eng.peak_mem} MiB (held at its "
+        f"start {eng.held_mem}); card {card}")
     check("main path", {
         "frame_step never waits on the host": eng.syncs.in_step == 0,
         "<= 2 synchronizing calls a tracked frame":
@@ -921,9 +982,12 @@ def phase_modes(card: str, frames, n_kf_default: int):
         f"card {card}")
     log(f"modes: {eng.syncs.total} synchronizing calls over {n_trk} tracked "
         f"frames ({eng.syncs.total / n_trk:.3f} a tracked frame), "
-        f"{eng.syncs.in_step} inside frame_step; timing "
+        f"{eng.syncs.in_step} inside frame_step, explicit "
+        f"torch.cuda.synchronize {eng.syncs.explicit_syncs} "
+        f"({eng.syncs.explicit_syncs / n_trk:.3f} a tracked frame); timing "
         f"{ {k: round(v, 4) for k, v in sorted(eng.timing.items())} }")
-    log(f"modes: kernel launches {launches}")
+    log(f"modes: kernel launches {launches}; peak device memory "
+        f"{eng.peak_mem} MiB (held at its start {eng.held_mem}); card {card}")
     check("modes", {
         "every frame posed": Rs.shape == (FRAMES, 3, 3)
         and bool(np.isfinite(Rs).all() and np.isfinite(ts).all()),
@@ -971,10 +1035,9 @@ def phase_syncs(card: str, n: int = 40):
     return rec
 
 
-def phase_non_fused_small_agreement():
-    """The non-fused path (use_fused=False) on the card against the same
-    path on the CPU, at the size and in the band of
-    phase_small_agreement."""
+def small_inputs():
+    """(cfg, K, frames, Rs_gt, ts_gt) of the one-camera agreements: the
+    room at small_test_config(1, 150, 200), 30 frames, forward 0.06."""
     from coslam_torch.config import small_test_config
     from coslam_torch.io.synthetic import (make_room, orbit_trajectory,
                                            render_sequence)
@@ -983,10 +1046,98 @@ def phase_non_fused_small_agreement():
     Rs_gt, ts_gt = orbit_trajectory(n, forward=0.06)
     frames = render_sequence(make_room(np.random.default_rng(0), size=10.0),
                              K[0], Rs_gt, ts_gt, h, w, device="cpu")[:, None]
+    return small_test_config(1, h, w), K, frames, Rs_gt[None], ts_gt[None]
+
+
+def two_camera_inputs():
+    """(cfg, K, frames, Rs_gt, ts_gt) of the two-camera agreements: the
+    20-frame rig of tests/test_pipeline_multicam.py
+    (small_test_config(2, 150, 200), baseline 1.0, forward 0.06)."""
+    from coslam_torch.config import small_test_config
+    from coslam_torch.io.synthetic import (make_room, render_sequence,
+                                           rig_sequence)
+    h, w, n, C = 150, 200, 20, 2
+    K1 = np.array([[180.0, 0, 100], [0, 180.0, 75], [0, 0, 1]], np.float32)
+    planes = make_room(np.random.default_rng(0), size=10.0)
+    Rs_gt, ts_gt = rig_sequence(C, n, baseline=1.0, forward=0.06)
+    frames = torch.stack([render_sequence(planes, K1, Rs_gt[c], ts_gt[c], h,
+                                          w, device="cpu")
+                          for c in range(C)], dim=1)
+    return small_test_config(C, h, w), np.repeat(K1[None], C, 0), frames, \
+        Rs_gt, ts_gt
+
+
+LOOP_AGE = 60                    # the cut loop scene's dormant age
+
+
+def loop_inputs():
+    """(cfg, K, frames, Rs_gt, ts_gt) of the loop agreement: the mono_loop
+    scene cut to 150x200 (f = 156.25) and 200 frames, its first 181, with
+    the closure thresholds of tests/test_loop_closure.py (closures 20
+    apart, 12 dormant projections, 7 inliers) and points dormant after
+    LOOP_AGE frames (the cut dwell lasts ~100). The run stops before the
+    second closure attempt (frame 186), whose Sim(3) scale evidence sits
+    on its acceptance threshold: one card run took a scale of 1.44 where
+    the CPU kept 1.0."""
+    import dataclasses
+    from coslam_torch.config import small_test_config
+    h, w, n_run = 150, 200, 181
+    K = KPROD * np.float32(w / W)
+    K[2, 2] = 1.0
+    frames, Rs_gt, ts_gt = mono_loop_scene(200, "cpu", h, w, K)
     cfg = small_test_config(1, h, w)
-    cpu, _, _ = run_engine(cfg, K, frames, "cpu", use_fused=False)
+    cfg = cfg.replace(p=dataclasses.replace(
+        cfg.p, loop_dormant_age=LOOP_AGE, loop_min_interval=20,
+        loop_overlap_min=12, loop_min_inliers=7))
+    return cfg, K[None], frames[:n_run], Rs_gt[:n_run], ts_gt[:n_run]
+
+
+# the CPU side of each card-against-CPU agreement: its inputs and modes
+CPU_RUNS = {"small": (small_inputs, {}),
+            "non_fused": (small_inputs, dict(use_fused=False)),
+            "two_camera": (two_camera_inputs, {}),
+            "loop": (loop_inputs, {})}
+
+
+class RunSummary:
+    """What the agreement checks read of an engine run: its logs and its
+    corrected trajectories (with and without chain scales), small enough
+    to come back from the worker process that made the CPU runs."""
+
+    def __init__(self, eng):
+        self.cfg = eng.cfg
+        self.stats_log = eng.stats_log
+        self.group_id = eng.group_id
+        self.kf_frames = list(eng.kf_frames)
+        self.loop_log = list(eng.loop_log)
+        self._trajs = {(c, cs): eng.trajectory(c, True, chain_scales=cs)
+                       for c in range(eng.cfg.num_cameras)
+                       for cs in (False, True)}
+
+    def trajectory(self, c: int, correct: bool = True,
+                   chain_scales: bool = False):
+        if not correct:
+            raise ValueError("a RunSummary keeps the corrected trajectories")
+        return self._trajs[(c, chain_scales)]
+
+
+def cpu_run(name: str) -> RunSummary:
+    """The CPU run ``name`` of CPU_RUNS (in the worker process: it runs
+    beside the card's phases, on cores their host path leaves free)."""
+    torch.set_num_threads(4)
+    make, kw = CPU_RUNS[name]
+    cfg, K, frames, _, _ = make()
+    eng, _, _ = run_engine(cfg, K, frames, "cpu", **kw)
+    return RunSummary(eng)
+
+
+def phase_non_fused_small_agreement(cpu_runs):
+    """The non-fused path (use_fused=False) on the card against the same
+    path on the CPU, at the size and in the band of
+    phase_small_agreement."""
+    cfg, K, frames, Rs_gt, ts_gt = small_inputs()
     gpu, _, launched = run_engine(cfg, K, frames, "cuda", use_fused=False)
-    agreement(cpu, gpu, Rs_gt[None], ts_gt[None], 0.20,
+    agreement(cpu_runs["non_fused"].result(), gpu, Rs_gt, ts_gt, 0.20,
               "non-fused small input")
     check("non-fused small input", launch_checks(launched, search=False))
 
@@ -1037,6 +1188,8 @@ def phase_multicam_path(card: str):
         f"{run_s:.2f} s; card {card}")
     log(f"threecam_dyn: kernel launches {launches}, per tracked frame "
         f"{ {k: round(v / max(n_tracked, 1), 3) for k, v in launches.items()} }")
+    log(f"threecam_dyn: peak device memory {eng.peak_mem} MiB (held at its "
+        f"start {eng.held_mem}); card {card}")
     check("threecam_dyn", {
         "bootstrap at frame 0": boot_frame(eng) == 0 and eng.kf_frames[0] == 0,
         ">=3 keyframes": len(eng.kf_frames) >= 3,
@@ -1098,81 +1251,47 @@ def agreement(cpu, gpu, Rs_gt, ts_gt, ate_bound: float, label: str):
     check(label, checks)
 
 
-def phase_small_agreement():
+def phase_small_agreement(cpu_runs):
     """The mono engine on the card against the CPU at the CPU tests' size
     (small_test_config(1, 150, 200), 30 frames), under the ATE bound of
     tests/test_pipeline_mono.py."""
-    from coslam_torch.config import small_test_config
-    from coslam_torch.io.synthetic import (make_room, orbit_trajectory,
-                                           render_sequence)
-    h, w, n = 150, 200, 30
-    K = np.array([[[180.0, 0, 100], [0, 180.0, 75], [0, 0, 1]]], np.float32)
-    Rs_gt, ts_gt = orbit_trajectory(n, forward=0.06)
-    frames = render_sequence(make_room(np.random.default_rng(0), size=10.0),
-                             K[0], Rs_gt, ts_gt, h, w, device="cpu")[:, None]
-    cfg = small_test_config(1, h, w)
-    cpu, _, _ = run_engine(cfg, K, frames, "cpu")
+    cfg, K, frames, Rs_gt, ts_gt = small_inputs()
     gpu, _, _ = run_engine(cfg, K, frames, "cuda")
-    agreement(cpu, gpu, Rs_gt[None], ts_gt[None], 0.20, "small input")
+    agreement(cpu_runs["small"].result(), gpu, Rs_gt, ts_gt, 0.20,
+              "small input")
 
 
-def phase_multicam_small_agreement():
+def phase_multicam_small_agreement(cpu_runs):
     """The two-camera engine on the card against the CPU on the 20-frame
     rig of tests/test_pipeline_multicam.py (small_test_config(2, 150, 200),
     baseline 1.0, forward 0.06), under that file's ATE bound (0.25); both
-    bootstrap at frame 0."""
-    from coslam_torch.config import small_test_config
-    from coslam_torch.io.synthetic import (make_room, render_sequence,
-                                           rig_sequence)
-    h, w, n, C = 150, 200, 20, 2
-    K1 = np.array([[180.0, 0, 100], [0, 180.0, 75], [0, 0, 1]], np.float32)
-    planes = make_room(np.random.default_rng(0), size=10.0)
-    Rs_gt, ts_gt = rig_sequence(C, n, baseline=1.0, forward=0.06)
-    frames = torch.stack([render_sequence(planes, K1, Rs_gt[c], ts_gt[c], h,
-                                          w, device="cpu")
-                          for c in range(C)], dim=1)
-    cfg = small_test_config(C, h, w)
-    K = np.repeat(K1[None], C, 0)
-    cpu, _, _ = run_engine(cfg, K, frames, "cpu")
+    bootstrap at frame 0. Returns the card's run (the mesh agreement's
+    one-card side)."""
+    cfg, K, frames, Rs_gt, ts_gt = two_camera_inputs()
+    cpu = cpu_runs["two_camera"].result()
     gpu, _, launched = run_engine(cfg, K, frames, "cuda")
     agreement(cpu, gpu, Rs_gt, ts_gt, 0.25, "two-camera small input")
     check("two-camera small input", {
         "bootstrap at frame 0": boot_frame(cpu) == boot_frame(gpu) == 0,
         **launch_checks(launched, search=False)})
+    return gpu
 
 
-def phase_loop_small_agreement():
-    """Loop closure on the card against the CPU at the CPU tests' size:
-    the mono_loop scene cut to 150x200 (f = 156.25) and 200 frames, run
-    over its first 181, with the closure thresholds of
-    tests/test_loop_closure.py (closures 20 apart, 12 dormant projections,
-    7 inliers) and points dormant after 60 frames (the cut dwell lasts
-    ~100). Both commit a closure anchored on
-    the dormant map, their first closures at most one grouping tick (5
-    frames) apart, camera centres within 5% of the path (RMS, after
-    Sim(3) alignment). (The 88-frame scene of tests/test_loop_closure.py
-    is not used here: on this package's render its one closure attempt
-    lands on a knife edge, ~15 px of drift against a 16 px search, and
-    commits or not with the CPU's thread count; its CPU test feeds the JAX
-    package's render.)"""
-    import dataclasses
-    from coslam_torch.config import small_test_config
+def phase_loop_small_agreement(cpu_runs):
+    """Loop closure on the card against the CPU at the CPU tests' size
+    (loop_inputs). Both commit a closure anchored on the dormant map,
+    their first closures at most one grouping tick (5 frames) apart,
+    camera centres within 5% of the path (RMS, after Sim(3) alignment).
+    (The 88-frame scene of tests/test_loop_closure.py is not used here:
+    on this package's render its one closure attempt lands on a knife
+    edge, ~15 px of drift against a 16 px search, and commits or not with
+    the CPU's thread count; its CPU test feeds the JAX package's
+    render.)"""
     from coslam_torch.io.ate import ate_rmse, camera_centers, umeyama
-    h, w, age, n_run = 150, 200, 60, 181
-    K = KPROD * np.float32(w / W)
-    K[2, 2] = 1.0
-    frames, Rs_gt, ts_gt = mono_loop_scene(200, "cpu", h, w, K)
-    # the run stops before the second closure attempt (frame 186), whose
-    # Sim(3) scale evidence sits on its acceptance threshold: one card run
-    # took a scale of 1.44 where the CPU kept 1.0
-    frames, Rs_gt, ts_gt = frames[:n_run], Rs_gt[:n_run], ts_gt[:n_run]
-    K = K[None]
-    cfg = small_test_config(1, h, w)
-    cfg = cfg.replace(p=dataclasses.replace(
-        cfg.p, loop_dormant_age=age, loop_min_interval=20,
-        loop_overlap_min=12, loop_min_inliers=7))
-    cpu, _, _ = run_engine(cfg, K, frames, "cpu")
+    cfg, K, frames, Rs_gt, ts_gt = loop_inputs()
+    age = LOOP_AGE
     gpu, _, launched = run_engine(cfg, K, frames, "cuda")
+    cpu = cpu_runs["loop"].result()
     trajs = [e.trajectory(0, True, chain_scales=True) for e in (cpu, gpu)]
     c_cpu, c_gpu = (camera_centers(*tr) for tr in trajs)
     s, R, t = umeyama(c_gpu, c_cpu)
@@ -1330,6 +1449,8 @@ def phase_splitmerge_path(card: str):
         f"{run_s:.2f} s; card {card}")
     log(f"splitmerge: kernel launches {launches}, per tracked frame "
         f"{ {k: round(v / max(n_tracked, 1), 3) for k, v in launches.items()} }")
+    log(f"splitmerge: peak device memory {eng.peak_mem} MiB (held at its "
+        f"start {eng.held_mem}); card {card}")
     check("splitmerge", {
         "groups split in frames 160-220":
             any(g[0] != g[1] for g in gh[160:220]),
@@ -1399,6 +1520,8 @@ def phase_mono_loop_path(card: str):
     log(f"mono_loop: kernel launches {launches}, {n_tracked} tracked "
         f"frames; ncc_search launches of each closure search (G = 43): "
         f"{searches}")
+    log(f"mono_loop: peak device memory {eng.peak_mem} MiB (held at its "
+        f"start {eng.held_mem}); card {card}")
     check("mono_loop", {
         "closure anchored on the dormant map":
             any(lc["frame"] - lc["f_anchor"] >= age for lc in eng.loop_log),
@@ -1423,14 +1546,18 @@ def warmed_engine(cfg, K, frames, warm: int):
     return eng
 
 
+PROFILE_FRAMES = 3               # tracked frames a profile phase traces
+
+
 def phase_profile(eng, frames, warm: int, card: str, table_path,
                   label: str):
-    """torch.profiler over the next 5 tracked frames of ``eng``, an engine
+    """torch.profiler over the next PROFILE_FRAMES tracked frames of
+    ``eng``, an engine
     that has processed frames 0..warm-1: wall and device-busy time per
     frame, the device's idle share, kernel launches per frame, and (to
     ``table_path``, when given) the table of operators by device time."""
     from torch.profiler import ProfilerActivity, profile
-    n = 5
+    n = PROFILE_FRAMES
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1699,9 +1826,11 @@ def phase_distorted_io(card: str):
         out = os.path.join(root, "results")
         for fn in counters.values():
             fn.launches = 0
+        held_a = reset_peak_memory()
         with SyncCounter() as sc, FrameClock(sc) as clock_a:
             eng_a = cli.main([inp, "--out", out])
         launches = {k: fn.launches for k, fn in counters.items()}
+        peak_a = peak_memory_mib()
         trajs_a = [load_campose(os.path.join(out, f"{c}_campose.txt"))
                    for c in range(C)]
         ates = [ate_rmse(*trajs_a[c], Rs_gt[c], ts_gt[c]) for c in range(C)]
@@ -1718,7 +1847,8 @@ def phase_distorted_io(card: str):
         log(f"distorted_io: CLI run (loader-fed, no feature log): tracked-"
             f"frame wall median {med_a:.3f} ms, p90 {p90_a:.3f} ms, "
             f"{syncs_a:.3f} synchronizing "
-            f"calls a tracked frame; kernel launches {launches}; card {card}")
+            f"calls a tracked frame; kernel launches {launches}; peak device "
+            f"memory {peak_a} MiB (held at its start {held_a}); card {card}")
         failed = failed_checks("distorted_io CLI", {
             "native loader": ld.native and n_read == n,
             "every frame posed": all(R.shape == (n, 3, 3) for R, _ in trajs_a)
@@ -1850,6 +1980,349 @@ def phase_distorted_io(card: str):
     return launches
 
 
+MESH_FRAMES = 100                # of fivecam_mesh's 150 (ACCURACY.md:23)
+MESH_CHUNK = 6                   # examples/accuracy_bench.py:136
+BA_REPS = 5                      # timed solves of each BA, median
+
+
+def mesh_devices(n: int) -> list[str]:
+    """One shard a camera over the visible cards, round robin: on one card
+    every shard is cuda:0."""
+    count = torch.cuda.device_count()
+    return [f"cuda:{k % count}" for k in range(n)]
+
+
+def fivecam_scene(n_frames: int, dev):
+    """The fivecam_mesh scene of examples/accuracy_bench.py
+    (config_fivecam_mesh and _rig_frames) at the production 480x640 with
+    f = 500 where that script cuts to 240x320 for its CPU mesh, seed 0
+    where it uses 7: five cameras on a rig (baseline 0.8,
+    orbit_trajectory forward 0.04), the generator drawn in that script's
+    order (one uniform, then the room), the views rendered in batches and
+    rounded to float16 as there. Returns (frames [F, 5, H, W] on ``dev``,
+    Rs_gt [5, F, 3, 3], ts_gt [5, F, 3])."""
+    from coslam_torch.io.synthetic import make_room, render_batch, rig_sequence
+    rng = np.random.default_rng(0)
+    rng.uniform()
+    planes = make_room(rng, size=10.0)
+    C = 5
+    Rs, ts = rig_sequence(C, n_frames, baseline=0.8, forward=0.04)
+    frames = render_batch(planes, KPROD,
+                          Rs.transpose(1, 0, 2, 3).reshape(-1, 3, 3),
+                          ts.transpose(1, 0, 2).reshape(-1, 3), H, W,
+                          frames=np.repeat(np.arange(n_frames), C),
+                          chunk=4 * C, device=dev).reshape(n_frames, C, H, W)
+    return frames.half().float(), Rs, ts
+
+
+def step_contract(mesh) -> dict:
+    """The transfers of one mesh step (tests/test_torch_parallel.py::
+    test_step_transfer_census): each shard's 11 track rows there and back,
+    and its NCC block pair back."""
+    from coslam_torch.slam.state import TrackTable
+    n = len(mesh)
+    want = {("to_main", "ncc.blocks"): n, ("to_main", "ncc.ok"): n}
+    for name in TrackTable._fields:
+        want[("to_shard", f"tracks.{name}")] = n
+        want[("to_main", f"tracks.{name}")] = n
+    return want
+
+
+class StepCensus:
+    """While entered, the mesh's transfers during each call of
+    ``fused.frame_step`` (also inside ``frame_steps_scan``), one dict a
+    call in ``steps``."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.steps = []
+
+    def __enter__(self):
+        import coslam_torch.slam.fused as fused
+        import coslam_torch.slam.pipeline as pipeline
+        self._mods = (fused, pipeline)
+        self._orig = fused.frame_step
+        census = self
+
+        def counted(*args, **kw):
+            before = dict(census.mesh.census)
+            out = census._orig(*args, **kw)
+            after = census.mesh.census
+            census.steps.append({k: v - before.get(k, 0)
+                                 for k, v in after.items()
+                                 if v != before.get(k, 0)})
+            return out
+        for m in self._mods:
+            m.frame_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        for m in self._mods:
+            m.frame_step = self._orig
+
+
+def phase_mesh_small_agreement(one):
+    """The two-camera engine on a mesh (one camera a shard, over
+    mesh_devices) against the same engine on one card (``one``: the card's
+    run of phase_multicam_small_agreement), on that phase's 20-frame rig
+    and in its band (agreement(): the same bootstrap frame and groups,
+    keyframes one entry apart, centres within 5% of the path RMS, ATE
+    under 0.25). Both sum on the card, in an order that changes from run
+    to run."""
+    from coslam_torch.parallel.mesh import make_cam_mesh
+    cfg, K, frames, Rs_gt, ts_gt = two_camera_inputs()
+    mesh = make_cam_mesh(devices=mesh_devices(cfg.num_cameras))
+    sharded, _, launched = run_engine(cfg, K, frames, "cuda", mesh=mesh)
+    log(f"mesh small input: mesh {mesh}; census {mesh_census_log(mesh)}")
+    agreement(one, sharded, Rs_gt, ts_gt, 0.25, "mesh small input")
+    check("mesh small input", {
+        "bootstrap at frame 0": boot_frame(one) == boot_frame(sharded) == 0,
+        **launch_checks(launched, search=False)})
+
+
+def mesh_census_log(mesh) -> dict:
+    return {f"{d}:{leaf}": v for (d, leaf), v in sorted(mesh.census.items())}
+
+
+def phase_fivecam_mesh(card: str):
+    """fivecam_mesh (BASELINE config 5, examples/accuracy_bench.py:292-322)
+    at the production configuration: five cameras on a rig, 100 of its 150
+    frames, the chunked engine (chunk=6) on a mesh of one camera a shard
+    over mesh_devices, the frames copied from the host straight to their
+    shards. The wide-baseline bootstrap by frame 2, one group, every
+    camera's ATE under 2% of camera 0's path (the JAX package's record:
+    0.46%, ACCURACY.md:23), finite poses and map; build_pyramid on every
+    frame and klt_track on every frame after the first, once a shard,
+    ncc_blocks on every shard of every tracked frame after the bootstrap,
+    ncc_search and extract_windows never; each mesh step's transfers
+    exactly the step contract (step_contract); no synchronizing call
+    inside frame_step. Logged: the bootstrap frame, the wall per tracked
+    frame (each chunk call ends in a device sync, its wall shared by its
+    frames), synchronizing calls, peak memory per card."""
+    import contextlib
+    from coslam_torch.io.ate import ate_rmse, camera_centers
+    from coslam_torch.parallel.mesh import make_cam_mesh
+    from coslam_torch.slam.pipeline import CoSlamEngine
+    n, C = MESH_FRAMES, 5
+    t0 = time.perf_counter()
+    frames, Rs_gt, ts_gt = fivecam_scene(n, "cuda")
+    frames = frames.cpu()
+    log(f"fivecam_mesh: rendered {tuple(frames.shape)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    devs = mesh_devices(C)
+    mesh = make_cam_mesh(devices=devs)
+    log(f"fivecam_mesh: mesh {mesh} ({len(set(devs))} distinct card(s))")
+    cfg = production_cfg(C)
+    K = np.repeat(KPROD[None], C, 0)
+    eng = CoSlamEngine(cfg, K, np.zeros((C, 5), np.float32), device=devs[0],
+                       chunk=MESH_CHUNK, mesh=mesh)
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    held = reset_peak_memory()
+    calls = []                  # (wall ms, frames the call stepped)
+    t_run = time.perf_counter()
+    with SyncCounter() as syncs, StepCensus(mesh) as steps:
+        for f in range(n):
+            n0 = len(steps.steps)
+            t0 = time.perf_counter()
+            eng.process_frame(frames[f])
+            torch.cuda.synchronize()
+            calls.append(((time.perf_counter() - t0) * 1e3,
+                          len(steps.steps) - n0))
+        trajs = [eng.trajectory(c, correct=True) for c in range(C)]
+    run_s = time.perf_counter() - t_run
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = peak_memory_mib()
+    ids, xyz, cov = eng.map_points()
+    path = float(np.linalg.norm(np.diff(camera_centers(Rs_gt[0], ts_gt[0]),
+                                        axis=0), axis=-1).sum())
+    ates = [ate_rmse(*trajs[c], Rs_gt[c], ts_gt[c]) for c in range(C)]
+    boot = boot_frame(eng)
+    per_frame = [ms / k for ms, k in calls if k]
+    n_steps = len(steps.steps)
+    want = step_contract(mesh)
+    bad_steps = [i for i, d in enumerate(steps.steps) if d != want]
+    n_trk = sum("med_err" in s for s in eng.stats_log)
+    log(f"fivecam_mesh: bootstrap {boot} keyframes {eng.kf_frames} "
+        f"ba_runs {eng.ba_runs} map_points {len(ids)} groups "
+        f"{eng.group_id.tolist()}")
+    log(f"fivecam_mesh: ATE per camera {[round(a, 6) for a in ates]} over a "
+        f"{path:.4f} camera-0 path "
+        f"({[round(100 * a / path, 4) for a in ates]}%)")
+    log(f"fivecam_mesh: wall per tracked frame (chunk calls of "
+        f"{MESH_CHUNK}, each ending in a sync) median "
+        f"{float(np.median(per_frame)):.3f} ms, p90 "
+        f"{float(np.percentile(per_frame, 90)):.3f} ms over {n_steps} mesh "
+        f"steps; total {run_s:.2f} s; card {card}")
+    log(f"fivecam_mesh: {syncs.total} synchronizing calls over {n_trk} "
+        f"tracked frames ({syncs.total / max(n_trk, 1):.3f} a tracked "
+        f"frame), {syncs.in_step} inside frame_step, explicit "
+        f"torch.cuda.synchronize {syncs.explicit_syncs} "
+        f"({syncs.explicit_syncs / max(n_trk, 1):.3f} a tracked frame)")
+    log(f"fivecam_mesh: kernel launches {launches}; peak device memory "
+        f"{peak} MiB (held at its start {held}); card {card}")
+    log(f"fivecam_mesh: transfers of each mesh step {want} "
+        f"({sum(want.values())}); steps off the contract {len(bad_steps)}; "
+        f"the run's census {mesh_census_log(mesh)}")
+    n_fused = n - 1 - (boot or 0)
+    check("fivecam_mesh", {
+        "bootstrap by frame 2": boot is not None and boot <= 2,
+        "one group": len(set(eng.group_id.tolist())) == 1,
+        "every camera's ATE < 2% of the camera-0 path":
+            max(ates) < 0.02 * path,
+        "finite poses": all(np.isfinite(R).all() and np.isfinite(t).all()
+                            for R, t in trajs),
+        "finite map": bool(len(ids) > 0 and np.isfinite(xyz).all()
+                           and np.isfinite(cov).all()),
+        "build_pyramid once a shard every frame":
+            launches["build_pyramid"] == C * n,
+        "klt_track once a shard every frame after the first":
+            launches["klt_track"] == C * (n - 1),
+        "ncc_blocks on every shard of every tracked frame":
+            launches["ncc_blocks"] >= C * n_fused,
+        "ncc_search not launched": launches["ncc_search"] == 0,
+        "extract_windows not launched": launches["extract_windows"] == 0,
+        "every tracked frame a mesh step": n_steps == n_fused,
+        "each mesh step's transfers the contract": not bad_steps,
+        "frame_step never waits on the host": syncs.in_step == 0,
+    })
+    return launches
+
+
+def bench_ba_problem(n_shards: int, dev):
+    """bench.py's BA problem (bench.py:129-172: 15 cameras, 2048 points,
+    ~3 observations a point, 0.3 px noise), drawn from seed 0, its point
+    axis padded to a multiple of ``n_shards`` with points of no
+    observation, frozen. Returns (BATableProblem on ``dev``, the mask of
+    the real points seen at least twice)."""
+    from coslam_torch.geometry.se3 import so3_exp_np
+    from coslam_torch.solvers.ba import BATableProblem
+    rng = np.random.default_rng(0)
+    M, P = 15, 2048
+    pad = (-P) % n_shards
+    X = rng.uniform(-4, 4, (P, 3)).astype(np.float32)
+    X[:, 2] += 10
+    Rb = np.stack([so3_exp_np(0.05 * rng.standard_normal(3).astype(
+        np.float32)) for _ in range(M)]).astype(np.float32)
+    tb = np.stack([np.array([0.2 * m, 0, 0.05], np.float32)
+                   for m in range(M)])
+    valid = rng.random((M, P)) < (3.0 / M)
+    px = np.zeros((M, 2, P), np.float32)
+    f, cx, cy = KPROD[0, 0], KPROD[0, 2], KPROD[1, 2]
+    for s in range(M):
+        Xc = X @ Rb[s].T + tb[s]
+        px[s, 0] = Xc[:, 0] / Xc[:, 2] * f + cx
+        px[s, 1] = Xc[:, 1] / Xc[:, 2] * f + cy
+    px += 0.3 * rng.standard_normal(px.shape).astype(np.float32)
+    cam_fixed = np.zeros(M, bool)
+    cam_fixed[:2] = True
+    X0 = np.concatenate([X + 0.05, np.tile(np.float32([0, 0, 10]),
+                                           (pad, 1))]).astype(np.float32)
+    px = np.concatenate([px, np.zeros((M, 2, pad), np.float32)], axis=2)
+    valid_p = np.concatenate([valid, np.zeros((M, pad), bool)], axis=1)
+    fixed = np.concatenate([np.zeros(P, bool), np.ones(pad, bool)])
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    prob = BATableProblem(K=T(np.broadcast_to(KPROD, (M, 3, 3))), R=T(Rb),
+                          t=T(tb), X=T(X0), obs_px=T(px),
+                          obs_valid=T(valid_p), cam_fixed=T(cam_fixed),
+                          point_fixed=T(fixed))
+    return prob, valid.sum(0) >= 2
+
+
+def phase_parallel(card: str, mono_frames):
+    """The multi-device layer's records on the card's devices:
+    - run_dryrun(5) at 480x640 with 1024 features (one mesh step, both
+      distributed BAs);
+    - dist_bundle_adjust_table over 5 point shards (mesh_devices) against
+      bundle_adjust_table on one card on bench.py's problem, R and t within
+      5e-4 and X within 5e-3 (points seen twice or more), both timed (CUDA
+      events around one solve, median of BA_REPS) as LM iterations/s;
+    - async BA on another device than the engine's: the mono scene's 100
+      frames (the main path's bound, 2% of the path, is set over all of
+      them: over the first 40 the same engine on the CPU reaches 4.80% of
+      that shorter path, with or without async BA), the solves on cuda:1
+      if the machine has it, else on the CPU; every dispatched BA applied,
+      the ATE under 2% of the path."""
+    from coslam_torch.io.ate import ate_rmse, camera_centers
+    from coslam_torch.io.synthetic import orbit_trajectory
+    from coslam_torch.parallel.dist_ba import dist_bundle_adjust_table
+    from coslam_torch.parallel.dryrun import run_dryrun
+    from coslam_torch.parallel.mesh import make_cam_mesh
+    from coslam_torch.solvers.ba import bundle_adjust_table
+    n = 5
+    t0 = time.perf_counter()
+    dry = run_dryrun(n, h=H, w=W, feats=N_FEAT, verbose=False,
+                     devices=mesh_devices(n))
+    log(f"parallel: run_dryrun({n}) at {H}x{W}, {N_FEAT} features on "
+        f"{mesh_devices(n)}: {json.dumps(dry)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    mesh = make_cam_mesh(devices=mesh_devices(n))
+    prob, seen = bench_ba_problem(n, mesh.main)
+    kw = dict(max_err=10.0, max_iter=2, inner_iter=30)
+    iters = kw["max_iter"] * kw["inner_iter"]
+
+    def timed(fn):
+        out = fn()
+        ms = []
+        for _ in range(BA_REPS):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn()
+            e.record()
+            e.synchronize()
+            ms.append(s.elapsed_time(e))
+        return out, float(np.median(ms))
+    one, one_ms = timed(lambda: bundle_adjust_table(prob, **kw))
+    dist, dist_ms = timed(lambda: dist_bundle_adjust_table(prob, mesh, **kw))
+    P = seen.shape[0]
+    seen = torch.from_numpy(seen).to(mesh.main)
+    d_R = float((one.R - dist.R).abs().max())
+    d_t = float((one.t - dist.t).abs().max())
+    d_X = float((one.X[:P][seen] - dist.X[:P][seen]).abs().max())
+    d_X_all = float((one.X[:P] - dist.X[:P]).abs().max())
+    log(f"parallel: table BA on bench.py's problem (15 cameras x 2048 "
+        f"points, {int(prob.obs_valid.sum())} observations): one card "
+        f"{one_ms:.3f} ms a solve ({iters / one_ms * 1e3:.1f} LM iterations/"
+        f"s), {n} point shards on {mesh_devices(n)} {dist_ms:.3f} ms "
+        f"({iters / dist_ms * 1e3:.1f} LM iterations/s); cost "
+        f"{float(one.cost):.4f} and {float(dist.cost):.4f}; apart: R "
+        f"{d_R:.3e}, t {d_t:.3e}, X {d_X:.3e} (seen twice or more; all "
+        f"{d_X_all:.3e}); card {card}")
+    # async BA on another device
+    other = "cuda:1" if torch.cuda.device_count() > 1 else "cpu"
+    nf = mono_frames.shape[0]
+    cfg = production_cfg(1)
+    Rs_gt, ts_gt = orbit_trajectory(FRAMES, forward=0.04)
+    eng, frame_ms, _ = run_engine(cfg, KPROD[None], mono_frames, "cuda",
+                                  async_ba=True, ba_device=other)
+    eng._apply_pending_ba()
+    Rs, ts = eng.trajectory(0, correct=True)
+    c_gt = camera_centers(Rs_gt[:nf], ts_gt[:nf])
+    path = float(np.linalg.norm(np.diff(c_gt, axis=0), axis=-1).sum())
+    ate = ate_rmse(Rs, ts, Rs_gt[:nf], ts_gt[:nf])
+    ba = eng.ba_async
+    log(f"parallel: async BA on {other} (engine on the card), mono {nf} "
+        f"frames: BA {ba}; ATE {ate:.6f} over a {path:.4f} path "
+        f"({100 * ate / path:.4f}%); tracked-frame median "
+        f"{frame_times(eng, frame_ms)[1]:.3f} ms; card {card}")
+    check("parallel", {
+        "dry run": len(dry["n_tracked"]) == n and min(dry["n_tracked"]) > 0,
+        "distributed BA: R within 5e-4": d_R <= 5e-4,
+        "distributed BA: t within 5e-4": d_t <= 5e-4,
+        "distributed BA: X within 5e-3": d_X <= 5e-3,
+        "distributed BA: finite cost": bool(torch.isfinite(dist.cost)),
+        ">= 1 BA dispatched to the other device": ba["dispatched"] >= 1,
+        "every BA applied": eng._pending_ba is None
+        and ba["dispatched"] == ba["ready"] + ba["deferred"]
+        + ba["flushed"] + ba["cancelled"] and ba["cancelled"] == 0,
+        "ATE < 2% of path": ate < 0.02 * path,
+    })
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile-table", default=None,
@@ -1873,22 +2346,38 @@ def main():
         log(f"phase {phase}: {now - t_lap:.2f} s wall")
         t_lap = now
     name, count, smi = phase_device()
+    # the CPU side of the card-against-CPU agreements, made meanwhile by
+    # one worker process (spawned: this process holds CUDA)
+    pool = ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu_runs = {k: pool.submit(cpu_run, k) for k in CPU_RUNS}
+        per_shape, by_path = run_phases(smi, cpu_runs, args, lap)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    report(name, count, smi, per_shape, by_path, t_start)
+
+
+def run_phases(smi: str, cpu_runs: dict, args, lap):
+    """Every phase after the device check, in order. Returns the kernel
+    records of each shape and the launches of each path."""
     phase_build()
     lap("build")
     per_shape = phase_kernels()
     lap("kernels")
-    phase_small_agreement()
+    phase_small_agreement(cpu_runs)
     lap("small agreement")
     mono, (cfg, K, frames), n_kf = phase_main_path(smi)
+    mono_frames = frames
     lap("mono")
     modes = phase_modes(smi, frames, n_kf)
     lap("modes")
-    phase_non_fused_small_agreement()
+    phase_non_fused_small_agreement(cpu_runs)
     lap("non-fused small agreement")
     phase_profile(warmed_engine(cfg, K, frames, 30), frames, 30, smi,
                   args.profile_table, label="mono")
     lap("mono profile")
-    phase_multicam_small_agreement()
+    two_camera = phase_multicam_small_agreement(cpu_runs)
     lap("two-camera small agreement")
     multi, (cfg, K, frames) = phase_multicam_path(smi)
     lap("threecam_dyn")
@@ -1896,19 +2385,33 @@ def main():
                   args.profile_table and args.profile_table + ".threecam",
                   label="threecam_dyn")
     lap("threecam_dyn profile")
-    phase_loop_small_agreement()
+    phase_loop_small_agreement(cpu_runs)
     lap("loop small agreement")
     split, eng, frames, f0 = phase_splitmerge_path(smi)
     lap("splitmerge")
     phase_profile(eng, frames, f0, smi, args.profile_table and
                   args.profile_table + ".splitmerge", label="splitmerge")
+    del eng, frames             # ~1 GB the later phases' peaks would hold
     lap("splitmerge profile")
     loop = phase_mono_loop_path(smi)
     lap("mono_loop")
     dist = phase_distorted_io(smi)
     lap("distorted_io")
+    phase_mesh_small_agreement(two_camera)
+    del two_camera
+    lap("mesh small agreement")
+    fivecam = phase_fivecam_mesh(smi)
+    lap("fivecam_mesh")
+    phase_parallel(smi, mono_frames)
+    lap("parallel")
     by_path = {"mono": mono, "modes": modes, "threecam_dyn": multi,
-               "splitmerge": split, "mono_loop": loop, "distorted_io": dist}
+               "splitmerge": split, "mono_loop": loop, "distorted_io": dist,
+               "fivecam_mesh": fivecam}
+    return per_shape, by_path
+
+
+def report(name, count, smi, per_shape, by_path, t_start):
+    """The per-kernel JSON record, then the last line."""
     general = per_shape.pop("general_radius")
     repo = "coslam_tpu"
     meta = {

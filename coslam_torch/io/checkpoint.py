@@ -7,7 +7,9 @@ The reference has no mid-run checkpointing (SURVEY.md §5: end-of-run
 export only); this is a capability of the JAX package that the port
 keeps. The whole device state (NamedTuples of fixed-shape tensors), the
 tracker's reference pyramid and the host-side logs round-trip through one
-compressed npz.
+compressed npz. The pyramid is stored stacked over the cameras, also from
+a mesh engine (gathered from its shards), so a file loads into a mesh or
+a single-device engine of either package.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from coslam_torch.ops.pyramid import Pyramid
+from coslam_torch.slam.fused import ShardedPyramid
 from coslam_torch.slam.state import (KeyframeStore, MapPoints, SlamState,
                                      TrackTable, init_state)
 from coslam_torch.util import to_host
@@ -94,6 +97,8 @@ def save_checkpoint(path: str, engine):
     # and self-contained
     pyr = engine.pyr_prev
     if pyr is not None:
+        if isinstance(pyr, ShardedPyramid):     # a mesh engine's shards
+            pyr = pyr.gather_levels()
         imgs = to_host(*pyr.imgs, pyr.dxs[0], pyr.dys[0])
         for li in range(len(pyr.imgs)):
             arrays[f"pyr.imgs.{li}"] = imgs[li]
@@ -146,14 +151,17 @@ def load_checkpoint(path: str, engine):
     engine._kf_pose_host = None
     engine._kf_inliers = d.pop("kf_inliers")
     n_lvl = sum(k.startswith("pyr.imgs.") for k in d)
+    engine.pyr_prev = None
     if n_lvl:
         def T(key):
-            return torch.from_numpy(d.pop(key)).to(dev)
+            return torch.from_numpy(d.pop(key))
         # derivatives at level 0 only (v3 stored every level; the extras
-        # are dropped, as build_pyramid makes level 0's only)
-        engine.pyr_prev = Pyramid(
+        # are dropped, as build_pyramid makes level 0's only); the pyramid
+        # is of the state's frame
+        engine.adopt_pyramid(Pyramid(
             imgs=tuple(T(f"pyr.imgs.{li}") for li in range(n_lvl)),
-            dxs=(T("pyr.dxs.0"),), dys=(T("pyr.dys.0"),))
+            dxs=(T("pyr.dxs.0"),), dys=(T("pyr.dys.0"),)),
+            int(d["state.frame"]))
     C = engine.cfg.num_cameras
     engine.traj = [[] for _ in range(C)]
     engine.rel = [[] for _ in range(C)]

@@ -26,9 +26,10 @@ The engine modes of the reference:
   and a CUDA event) and read one frame (chunk) later, so the cadence acts
   on one-frame-old stats and the host never waits a round trip.
 - ``async_ba``: the windowed BA is dispatched and applied a few frames
-  later (on a card its solve runs on a side CUDA stream; ``_poll_ba``
-  applies it once the solve's event has completed, or after ``max_defer``
-  frames), with the slot-generation guard of
+  later (on a card its solve runs on a side CUDA stream, of ``ba_device``
+  when that names another card; ``_poll_ba`` applies it once the solve's
+  event has completed, or after ``max_defer`` frames), with the
+  slot-generation guard of
   ``steps.apply_ba_table_results``; a committed merge or loop closure
   cancels a solve in flight (the reference's BA thread and bCancelBA).
   Merge and loop polish BAs stay synchronous.
@@ -40,9 +41,13 @@ The engine modes of the reference:
   every mapped feature after each frame past the bootstrap (the
   reference's per-frame feature export), pulled after the cadence (one
   wait).
-
-Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
-multi-device meshes and BA on another card (A18).
+- ``mesh`` (a ``parallel.mesh.CamMesh`` with one device a camera): the
+  frames go straight to their camera's device, where its pyramid, KLT
+  and corner refill and NCC blocks run (``fused.frame_step``'s mesh
+  step, in every mode); the state and everything else stay on the
+  mesh's first device, the engine's. The carried pyramid stays on the
+  shards (``fused.ShardedPyramid``); the cadence's readers of the
+  current image take level 0 through one gather (``_level0``).
 """
 
 from __future__ import annotations
@@ -60,12 +65,15 @@ from coslam_torch.geometry import camera as cam
 from coslam_torch.geometry import epipolar
 from coslam_torch.geometry.triangulate import triangulation_cov
 from coslam_torch.ops.corners import detect_corners
-from coslam_torch.ops.pyramid import build_pyramid
+from coslam_torch.ops.pyramid import Pyramid, build_pyramid
+from coslam_torch.parallel.mesh import on_device
 from coslam_torch.slam import steps
 from coslam_torch.slam.classify import (classify_map_points,
                                         detect_dynamic_features)
-from coslam_torch.slam.fused import (frame_step, frame_steps_chunk,
-                                     pack_stats, unpack_stats)
+from coslam_torch.slam.fused import (ShardedPyramid, build_sharded_pyramid,
+                                     frame_step, frame_steps_chunk,
+                                     pack_stats, shard_advance_tracks,
+                                     shard_frames, shard_pyramid, unpack_stats)
 from coslam_torch.slam.grouping import (camera_grouping,
                                         group_camera_tuples, host_scan_device)
 from coslam_torch.slam.initmap import init_map_multicam
@@ -157,34 +165,42 @@ class CoSlamEngine:
     ``device`` defaults to CUDA and raises when no card is present; pass
     ``device="cpu"`` to run the plain PyTorch path on the CPU. The modes
     (``chunk``, ``overlap``, ``async_ba``, ``use_fused``, ``profile``) are
-    the reference's; see the module docstring. ``ba_device`` may only name
-    the engine's own device (another card is ROADMAP A18)."""
+    the reference's; see the module docstring. ``ba_device``: where the
+    asynchronous BA solves (the engine's device by default; another card,
+    or the CPU). ``mesh``: one device a camera, its first the engine's
+    ``device`` (the default device then)."""
 
     def __init__(self, cfg: SlamConfig, K, kc, device=None,
                  profile: bool = False, use_fused: bool = True,
                  async_ba: bool = False, ba_device=None,
                  overlap: bool = False, chunk: int = 1, mesh=None,
                  log_features: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device meshes are not ported yet: ROADMAP.md item A18")
         self.cfg = cfg
+        C = cfg.num_cameras
+        if mesh is not None and device is None:
+            device = mesh.main
         self.device = resolve_device(device)
-        if ba_device is not None and \
-                not _same_device(torch.device(ba_device), self.device):
-            raise NotImplementedError(
-                "BA on another device than the engine's is not ported yet: "
-                "ROADMAP.md item A18")
+        if mesh is not None:
+            if len(mesh) != C:
+                raise ValueError(f"a mesh of {len(mesh)} devices for {C} "
+                                 "cameras: the engine takes one a camera")
+            if not _same_device(mesh.main, self.device):
+                raise ValueError(f"the engine's device {self.device} is not "
+                                 f"its mesh's first device {mesh.main}")
+        self.mesh = mesh
         self.profile = profile
         self.use_fused = use_fused
         self.async_ba = async_ba
         self.ba_device = ba_device
+        self._ba_dev = self.device if ba_device is None else \
+            torch.device(ba_device)
+        if _same_device(self._ba_dev, self.device):
+            self._ba_dev = self.device
         self.overlap = overlap
         self.chunk = max(1, int(chunk))
         self.log_features = log_features
         self.feat_log: list[tuple] = []    # (frame, cam, ids, xy)
         self.timing: dict[str, float] = {}
-        C = cfg.num_cameras
         K = torch.as_tensor(np.asarray(K, np.float32))
         if tuple(K.shape) != (C, 3, 3):
             raise ValueError(f"K must be [{C}, 3, 3], got {tuple(K.shape)}")
@@ -264,8 +280,49 @@ class CoSlamEngine:
         """After ``io.checkpoint.load_checkpoint`` of a checkpoint without
         the reference pyramid: rebuild the tracker's reference pyramid from
         the last processed frame's images [C, H, W]."""
-        imgs = to_device(images, self.device).to(torch.float32)
-        self.pyr_prev = build_pyramid(imgs, self.cfg.klt.n_levels)
+        self.pyr_prev = None
+        self.pyr_prev = self._pyramid(self._upload(images), self.frame - 1)
+
+    def adopt_pyramid(self, pyr: Pyramid, frame: int):
+        """Take a camera-stacked pyramid (a checkpoint's, another engine's)
+        as the tracker's reference pyramid of frame ``frame``: on the
+        engine's device, or split over the mesh's shards."""
+        if self.mesh is None:
+            self.pyr_prev = Pyramid(*[tuple(a.to(self.device) for a in lv)
+                                      for lv in pyr])
+        else:
+            pyr = Pyramid(*[tuple(a.to(self.mesh.main) for a in lv)
+                            for lv in pyr])
+            self.pyr_prev = shard_pyramid(self.mesh, pyr, frame, self.K,
+                                          self.kc)
+
+    def _upload(self, images):
+        """A frame's images on the device as float32 [C, H, W]; with a mesh
+        one [C/n, H, W] tensor a shard, copied straight to its device (the
+        step converts them)."""
+        if self.mesh is None:
+            return to_device(images, self.device).to(torch.float32)
+        return shard_frames(self.mesh, images)
+
+    def _pyramid(self, imgs, frame: int):
+        """The pyramid of this frame's images: with a mesh, each shard's
+        on its device, the carried pyramid's frame one on (or ``frame``
+        for the first)."""
+        if self.mesh is None:
+            return build_pyramid(imgs, self.cfg.klt.n_levels)
+        if self.pyr_prev is None:
+            return build_sharded_pyramid(self.mesh, imgs,
+                                         self.cfg.klt.n_levels, frame,
+                                         self.K, self.kc)
+        return self.pyr_prev.following(imgs)
+
+    @staticmethod
+    def _level0(pyr):
+        """The current images for the cadence's readers (the map init, the
+        merge bridge, loop closure, inter-camera mapping, registration),
+        which read level 0 only: the pyramid itself, or a mesh pyramid's
+        level 0 gathered to the engine's device (once per frame)."""
+        return pyr.level0() if isinstance(pyr, ShardedPyramid) else pyr
 
     def process_frame(self, images) -> dict:
         """Feed one frame: images [C, H, W] (numpy or tensor, float32 or
@@ -285,12 +342,12 @@ class CoSlamEngine:
         self._pose_host_cache = None   # state.R/t will change this frame
         self._pose_prefetch = None
         self._kf_prefetch = None
-        imgs = to_device(images, self.device).to(torch.float32)
+        imgs = self._upload(images)
         t0 = self._tick("upload", t0)
         if self.bootstrapped and self.use_fused and self.frame > 0:
             self.state, pyr, fs = frame_step(
                 self.state, self.pyr_prev, imgs, self.K, self.kc, cfg,
-                large_err=self.frame < self._large_err_until)
+                mesh=self.mesh, large_err=self.frame < self._large_err_until)
             fsv = pack_stats(fs)
             t0 = self._tick("core_fused", t0)
             stats = {"frame": self.frame}
@@ -325,7 +382,7 @@ class CoSlamEngine:
             if log_entry:
                 self.stats_log.append(stats)
             return stats
-        pyr = build_pyramid(imgs, cfg.klt.n_levels)
+        pyr = self._pyramid(imgs, self.frame)
         t0 = self._tick("pyramid", t0)
         stats = {"frame": self.frame}
         if self.frame == 0:
@@ -334,11 +391,18 @@ class CoSlamEngine:
                 stats["bootstrap"] = self._bootstrap_multicam(pyr)
         else:
             t1 = time.perf_counter()
-            self.state = self.state._replace(
-                tracks=steps.advance_tracks(
+            blocks = None
+            if self.mesh is None:
+                tracks = steps.advance_tracks(
                     self.pyr_prev, pyr, self.state.tracks, self.K, self.kc,
-                    self.state.frame + 1, cfg),
-                frame=self.state.frame + 1)
+                    self.state.frame + 1, cfg)
+            else:
+                # a tracked frame's NCC blocks are cut on the shards
+                tracks, blocks = shard_advance_tracks(
+                    self.pyr_prev, pyr, self.state.tracks, cfg,
+                    blocks=self.bootstrapped)
+            self.state = self.state._replace(tracks=tracks,
+                                             frame=self.state.frame + 1)
             self._tick("tracking", t1)
             if not self.bootstrapped:
                 t1 = time.perf_counter()
@@ -348,7 +412,7 @@ class CoSlamEngine:
                     stats["bootstrap"] = self._bootstrap(pyr)
                 self._tick("bootstrap", t1)
             else:
-                stats.update(self._tracked_frame(pyr))
+                stats.update(self._tracked_frame(pyr, blocks))
         self._record_pose()
         if self.log_features and self.bootstrapped:
             self._log_features()
@@ -371,12 +435,17 @@ class CoSlamEngine:
         self._pose_host_cache = None
         self._pose_prefetch = None
         self._kf_prefetch = None
-        imgs = torch.stack([to_device(f, self.device) for f in buf]).to(
-            torch.float32)
+        if self.mesh is None:
+            imgs = torch.stack([to_device(f, self.device) for f in buf]).to(
+                torch.float32)
+        else:
+            per = [shard_frames(self.mesh, f) for f in buf]
+            imgs = [torch.stack([p[k] for p in per])
+                    for k in range(len(self.mesh))]
         t0 = self._tick("upload", t0)
         self.state, pyr, flat = frame_steps_chunk(
             self.state, self.pyr_prev, imgs, self.K, self.kc, self.cfg,
-            large_err=self.frame < self._large_err_until)
+            mesh=self.mesh, large_err=self.frame < self._large_err_until)
         self.pyr_prev = pyr
         t0 = self._tick("core_chunk", t0)
         if self.overlap:
@@ -494,15 +563,29 @@ class CoSlamEngine:
 
     # ------------------------------------------------------------------
     def _first_frame(self, pyr):
+        """Frame 0: corners on every camera (with a mesh, each block's on
+        its device, gathered to the engine's) seed the track table."""
         cfg = self.cfg
         N = cfg.cap.max_features
-        det = detect_corners(pyr.imgs[0], pyr.dxs[0], pyr.dys[0], cfg.klt, N)
+        if self.mesh is None:
+            det = detect_corners(pyr.imgs[0], pyr.dxs[0], pyr.dys[0],
+                                 cfg.klt, N)
+            pos, valid = det.pos, det.valid
+        else:
+            dets = []
+            for p, dev in zip(pyr.pyrs, self.mesh.devices):
+                with on_device(dev):
+                    dets.append(detect_corners(p.imgs[0], p.dxs[0],
+                                               p.dys[0], cfg.klt, N))
+            pos = torch.cat(self.mesh.gather([d.pos for d in dets],
+                                             "corners.pos"))
+            valid = torch.cat(self.mesh.gather([d.valid for d in dets],
+                                               "corners.valid"))
         # seed_tracks expects undistorted px; detector output is raw px
-        pos_ud = cam.undistort_points(det.pos, self.K[:, None],
-                                      self.kc[:, None])
+        pos_ud = cam.undistort_points(pos, self.K[:, None], self.kc[:, None])
         tracks = steps.seed_tracks(
-            self.state.tracks, pos_ud, det.valid,
-            torch.full(det.valid.shape, -1, dtype=torch.int32,
+            self.state.tracks, pos_ud, valid,
+            torch.full(valid.shape, -1, dtype=torch.int32,
                        device=self.device), self.K, self.kc, 0)
         self.state = self.state._replace(tracks=tracks)
 
@@ -514,7 +597,7 @@ class CoSlamEngine:
         undistorts them twice (ROADMAP.md, C3); without distortion it is
         the JAX package's call."""
         st = self.state
-        res = init_map_multicam(self.cfg, self.K, self.kc, pyr,
+        res = init_map_multicam(self.cfg, self.K, self.kc, self._level0(pyr),
                                 st.tracks.pos, st.tracks.valid,
                                 raw=st.tracks.raw if self.distorted else None)
         if not res.ok:
@@ -672,12 +755,13 @@ class CoSlamEngine:
             sel = np.nonzero(ok[c])[0]
             self.feat_log.append((self.frame, c, mpt[c, sel], pos[c, sel]))
 
-    def _tracked_frame(self, pyr) -> dict:
+    def _tracked_frame(self, pyr, blocks=None) -> dict:
         """The non-fused path (``use_fused=False``): the fused step's
         stages as separate calls after ``advance_tracks`` (pose update, pose
         history, classification with several cameras, new map points), the
         shared cadence, and the lifecycle update after the cadence (the
-        fused step runs it before), as the reference orders them."""
+        fused step runs it before), as the reference orders them. With a
+        mesh the NCC blocks (``blocks``) were cut on the shards."""
         cfg = self.cfg
         C = cfg.num_cameras
         t0 = time.perf_counter()
@@ -699,7 +783,7 @@ class CoSlamEngine:
             n_static, n_dynamic = cls.n_static, cls.n_dynamic
         t0 = self._tick("classify", t0)
         mappts, tracks, n_new = steps.new_map_points(
-            self.state, pyr, self.K, self.kc, cfg)
+            self.state, pyr, self.K, self.kc, cfg, blocks=blocks)
         self.state = self.state._replace(mappts=mappts, tracks=tracks)
         self._tick("new_map_points", t0)
         n_mapped = torch.sum(tracks.valid & (tracks.mpt >= 0), dim=1)
@@ -836,8 +920,9 @@ class CoSlamEngine:
         t0 = time.perf_counter()
         if (since >= p.intercam_map_interval and budget_low) or decrease:
             for cams in group_camera_tuples(self.group_id):
-                mp, tr, nn = intercam_map_group(self.state, pyr, self.K,
-                                                self.kc, cams, self.cfg)
+                mp, tr, nn = intercam_map_group(self.state, self._level0(pyr),
+                                                self.K, self.kc, cams,
+                                                self.cfg)
                 self.state = self.state._replace(mappts=mp, tracks=tr)
                 n_inter += int(nn)
             self._last_intercam = self.frame
@@ -845,7 +930,8 @@ class CoSlamEngine:
         if self.frame - self._last_register >= p.intercam_map_interval:
             self._last_register = self.frame
             self.state, _ = register_map_points(
-                self.state, pyr, self.K, self.cfg, max_age=p.num_act_frames)
+                self.state, self._level0(pyr), self.K, self.cfg,
+                max_age=p.num_act_frames)
         self._tick("cad_register", t0)
         return n_inter
 
@@ -973,6 +1059,7 @@ class CoSlamEngine:
         f_sep = next((f for f in range(len(self.group_hist) - 1, -1, -1)
                       if self.group_hist[f][cand.cam_a]
                       == self.group_hist[f][cand.cam_b]), 0)
+        pyr = self._level0(pyr)
         res = merge_groups(self.state, cfg, pyr, self.K, self.kc,
                            self.group_id, cand, f_sep=f_sep)
         if not res.ok:
@@ -1051,8 +1138,8 @@ class CoSlamEngine:
                                      self.K.cpu().numpy())
         if not cands:
             return
-        res = close_loop(self.state, self.cfg, pyr, self.K, self.kc,
-                         self.group_id, cands[0][0])
+        res = close_loop(self.state, self.cfg, self._level0(pyr), self.K,
+                         self.kc, self.group_id, cands[0][0])
         if not res.ok:
             self._loop_backoff = min(
                 max(2 * GROUPING_INTERVAL, self._loop_backoff * 2),
@@ -1128,57 +1215,84 @@ class CoSlamEngine:
                                    inner_iter=p.ba_inner_iter)
 
     def _dispatch_ba(self, prob, ring, kf_ok) -> dict:
-        """Start an asynchronous solve. On a card it runs on a side stream
-        that first waits for the main stream's work so far (the problem's
-        tables); the problem's tensors are marked as used there and the
-        result's as used on the main stream, so the caching allocator
-        reuses neither too early, and an event marks the solve's end. The
-        solve has no host sync, so the host goes on tracking while it runs;
-        the problem's tables are copies (indexing and concatenation), and
-        no step writes into a tensor in place, so tracking changes nothing
-        the solve reads. ``gen0`` keeps the slots' generations for the
-        write-back guard."""
+        """Start an asynchronous solve on ``ba_device`` (the engine's device
+        by default). On a card it runs on a side stream of that card which
+        first waits for the engine's stream (the problem's tables, and on
+        another card their copies, which that stream makes); an event marks
+        the solve's end. On the engine's own card the problem's tensors are
+        marked as used on the side stream and the result's as used on the
+        main stream, so the caching allocator reuses neither too early (on
+        another card the copies and the result are the side stream's own).
+        The solve has no host sync, so the host goes on tracking while it
+        runs; the problem's tables are copies (indexing and concatenation),
+        and no step writes into a tensor in place, so tracking changes
+        nothing the solve reads. On the CPU the solve runs at once.
+        ``gen0`` keeps the slots' generations for the write-back guard."""
         gen0 = self.state.mappts.gen.clone()
+        dev = self._ba_dev
         done = None
-        if self.device.type == "cuda":
-            main = torch.cuda.current_stream(self.device)
+        if dev.type == "cuda":
             if self._ba_stream is None:
-                self._ba_stream = torch.cuda.Stream(self.device)
+                self._ba_stream = torch.cuda.Stream(dev)
             side = self._ba_stream
-            tables_ready = torch.cuda.Event()
-            tables_ready.record(main)
-            side.wait_event(tables_ready)
+            if self.device.type == "cuda":
+                tables_ready = torch.cuda.Event()
+                tables_ready.record(torch.cuda.current_stream(self.device))
+                side.wait_event(tables_ready)
             with torch.cuda.stream(side):
-                res = self._solve_ba(prob)
+                res = self._solve_ba(type(prob)(*[
+                    x.to(dev, non_blocking=True) for x in prob]))
                 done = torch.cuda.Event()
                 done.record(side)
-            for x in prob:
-                x.record_stream(side)
-            for x in res:
-                x.record_stream(main)
+            if dev == self.device:
+                main = torch.cuda.current_stream(self.device)
+                for x in prob:
+                    x.record_stream(side)
+                for x in res:
+                    x.record_stream(main)
         else:
-            res = self._solve_ba(prob)
+            res = self._solve_ba(type(prob)(*[x.to(dev) for x in prob]))
         self.ba_async["dispatched"] += 1
         return {"res": res, "ring": ring, "kf_ok": kf_ok, "gen0": gen0,
                 "frame": self.frame, "done": done}
 
     def _apply_pending_ba(self, why: str = "flushed"):
         """Write back the in-flight BA result (async_ba), after the main
-        stream waited for the solve's event; point slots re-minted while it
-        was in flight are skipped (``gen0``)."""
+        stream waited for the solve's event (a result on another device
+        comes back first); point slots
+        re-minted while it was in flight are skipped (``gen0``)."""
         pb = self._pending_ba
         if pb is None:
             return
         self._pending_ba = None
         self.ba_async[why] += 1
-        if self.device.type == "cuda":
+        res = pb["res"]
+        if pb["done"] is not None and self.device.type == "cuda":
             torch.cuda.current_stream(self.device).wait_event(pb["done"])
+        if self._ba_dev != self.device:
+            res = self._result_home(res, pb["done"])
         self.state = steps.apply_ba_table_results(
-            self.state, pb["res"], pb["ring"], pb["kf_ok"], self.cfg,
+            self.state, res, pb["ring"], pb["kf_ok"], self.cfg,
             gen0=pb["gen0"])
         self._pose_host_cache = None
         self._kf_pose_host = None
         self._prefetch_poses()
+
+    def _result_home(self, res, done):
+        """A BA result solved on ``ba_device`` on the engine's device: from
+        another card, copied on the solve's stream (ordered after the solve
+        and before the engine's stream reads it); from the CPU, queued with
+        no host wait; from a card to a CPU engine, after the solve's
+        event."""
+        home = self.device
+        if self._ba_dev.type == "cuda" and home.type == "cuda":
+            with torch.cuda.stream(self._ba_stream):
+                return type(res)(*[x.to(home, non_blocking=True)
+                                   for x in res])
+        if home.type == "cpu":
+            done.synchronize()
+            return type(res)(*[x.to(home) for x in res])
+        return type(res)(*[to_device(x, home) for x in res])
 
     def _poll_ba(self, max_defer: int = 8):
         """Apply the in-flight BA once its solve has finished (on a card:

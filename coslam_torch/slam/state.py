@@ -171,11 +171,13 @@ def _map_tree(fn, tree):
     return fn(tree)
 
 
-def state_from_numpy(tree, device=None):
+def state_from_numpy(tree, device=None, mesh=None):
     """A state (or any of its NamedTuples) whose leaves are numpy arrays —
     e.g. ``jax.tree.map(np.asarray, jax_state)`` — as the port's tensors,
-    same field names, dtypes and shapes."""
-    dev = resolve_device(device)
+    same field names, dtypes and shapes. With ``mesh`` (a
+    ``parallel.mesh.CamMesh``) the state is placed as a mesh engine keeps
+    it: on the mesh's first device."""
+    dev = mesh.main if mesh is not None else resolve_device(device)
     return _map_tree(
         lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev), tree)
 

@@ -15,10 +15,18 @@ two forms.
 Both solve the reduced camera system densely. Robust protocol: Huber
 outer passes, Tukey on the last, outlier out-flags (bundleAdjustRobust).
 Cameras may be frozen (gauge) and points may be frozen (anchors).
+
+Each form is one LM loop over a list of shards (``mesh=``, the JAX
+solvers' ``axis_name``): the table form's points or the list form's
+observations split over a mesh's devices, the camera system summed on
+the mesh's first device and solved there once. A solve on one device is
+one shard, and moves nothing.
 """
 
 from __future__ import annotations
 
+import functools
+import operator
 from typing import NamedTuple
 
 import torch
@@ -100,12 +108,15 @@ def _table_terms(K, R, t, X, obs_px, w):
     return Hcc, gc, Wcp, Hpp, gp, cost
 
 
-def _table_schur(Hcc, gc, Wcp, Hpp, gp, lam, cam_fixed, point_fixed):
-    """Damped GN step: eliminate points (closed-form 3x3), solve the
-    reduced [6S, 6S] camera system, back-substitute."""
-    S = Hcc.shape[0]
+def _table_eliminate(Wcp, Hpp, gp, lam, point_fixed):
+    """The points' part of the damped Gauss-Newton step, on the points'
+    device: eliminate each point (closed-form 3x3) and contract its blocks
+    into the reduced camera system. Returns (Sred [6S, 6S] and Ygp [S, 6],
+    which sum over point shards, and (Hinv, Wm, gp_m) for the
+    back-substitution)."""
+    S = Wcp.shape[2]
     P = gp.shape[1]
-    dt, dev = Hcc.dtype, Hcc.device
+    dt, dev = Wcp.dtype, Wcp.device
     eye3 = torch.eye(3, dtype=dt, device=dev)[:, :, None]
     pf = point_fixed
     Hpp_d = Hpp * (1.0 + lam * eye3) + lam * 1e-3 * eye3
@@ -120,6 +131,14 @@ def _table_schur(Hcc, gc, Wcp, Hpp, gp, lam, cam_fixed, point_fixed):
     Wmat = Wm.permute(2, 0, 1, 3).reshape(S * 6, 3 * P)
     Sred = -(Ymat @ Wmat.T)
     Ygp = (Ymat @ gp_m.reshape(3 * P)).reshape(S, 6)
+    return Sred, Ygp, (Hinv, Wm, gp_m)
+
+
+def _table_camera_step(Hcc, gc, Sred, Ygp, lam, cam_fixed):
+    """Solve the reduced [6S, 6S] camera system (the points' parts summed
+    over shards) for the damped camera step dc [S, 6]."""
+    S = Hcc.shape[0]
+    dt, dev = Hcc.dtype, Hcc.device
     eye6 = torch.eye(6, dtype=dt, device=dev)
     Hcc_d = Hcc + lam * (eye6 * 1e-3 + Hcc * eye6)
     Sred = Sred.reshape(S, 6, S, 6)
@@ -132,60 +151,133 @@ def _table_schur(Hcc, gc, Wcp, Hpp, gp, lam, cam_fixed, point_fixed):
     rhs = rhs * free[:, None]
     # solve_ex: no host sync for the error check (a singular system gives
     # non-finite steps, which the caller rejects)
-    dc = -torch.linalg.solve_ex(Sred.reshape(S * 6, S * 6),
-                                rhs.reshape(-1))[0].reshape(S, 6)
+    return -torch.linalg.solve_ex(Sred.reshape(S * 6, S * 6),
+                                  rhs.reshape(-1))[0].reshape(S, 6)
+
+
+def _table_back_substitute(elim, dc):
+    """The points' step dX [3, P] on the points' device, given the camera
+    step dc there."""
+    Hinv, Wm, gp_m = elim
     Wt_dc = torch.einsum("iksp,si->kp", Wm, dc)
-    dX = -torch.einsum("klp,lp->kp", Hinv, gp_m + Wt_dc)
-    return dc, dX
+    return -torch.einsum("klp,lp->kp", Hinv, gp_m + Wt_dc)
 
 
-def bundle_adjust_table(prob: BATableProblem, max_err: float = 10.0,
-                        max_iter: int = 2,
-                        inner_iter: int = 10) -> BATableResult:
-    """Robust windowed BA over the dense [S, P] observation table."""
-    dt = prob.X.dtype
-    base_w = prob.obs_valid.to(dt)                        # [S, P]
-    R, t, X = prob.R, prob.t, prob.X.T.contiguous()       # X: [3, P]
-    w = base_w
-    zero = torch.zeros((), dtype=dt, device=X.device)
+class _Shards:
+    """The reductions of a solve split over a mesh: ``to_shards`` moves a
+    value of main to every shard, ``sum`` moves each shard's part to main
+    and adds them (the JAX package's ``psum``). Without a mesh there is one
+    shard on one device and both move nothing."""
+
+    def __init__(self, mesh, n: int):
+        self.mesh = mesh
+        self.n = n
+
+    def to_shards(self, x, leaf: str):
+        if self.mesh is None:
+            return [x]
+        return self.mesh.scatter([x] * self.n, leaf)
+
+    def _home(self, parts, leaf: str):
+        return parts if self.mesh is None else self.mesh.gather(parts, leaf)
+
+    def sum(self, parts, leaf: str):
+        return functools.reduce(operator.add, self._home(parts, leaf))
+
+    def all(self, parts, leaf: str):
+        return functools.reduce(operator.and_, self._home(parts, leaf))
+
+
+def bundle_adjust_table(prob, max_err: float = 10.0, max_iter: int = 2,
+                        inner_iter: int = 10, mesh=None):
+    """Robust windowed BA over the dense [S, P] observation table.
+
+    With ``mesh`` (the port of the JAX solver's ``axis_name``), ``prob`` is
+    a list of point shards, shard k on ``mesh.devices[k]`` with the whole
+    camera side (``parallel.dist_ba.dist_bundle_adjust_table`` splits a
+    problem so): each shard builds its camera blocks and eliminates its
+    points on its device, the camera system's parts (Hcc, gc, the cost,
+    Sred, Ygp) are summed on ``mesh.main``, the [6S, 6S] solve runs there
+    once, the step goes back to every shard for its back-substitution and
+    trial cost, and the trial costs are summed on main. Returns one result
+    per shard then, R, t and the cost on main and shared."""
+    shards = list(prob) if mesh is not None else [prob]
+    red = _Shards(mesh, len(shards))
+    p0 = shards[0]
+    dt = p0.X.dtype
+    base_w = [s.obs_valid.to(dt) for s in shards]          # [S, P] each
+    R, t = p0.R, p0.t
+    X = [s.X.T.contiguous() for s in shards]               # [3, P] each
+    zero = torch.zeros((), dtype=dt, device=R.device)
+
+    def residuals(Rs, ts, Xs):
+        return [_residuals(s.K, Rk, tk, Xk, s.obs_px)
+                for s, Rk, tk, Xk in zip(shards, Rs, ts, Xs)]
+
     for k in range(max_iter):
-        ru, rv, z, _, _ = _residuals(prob.K, R, t, X, prob.obs_px)
-        en = torch.hypot(ru, rv)
-        w_rob = huber_weight(en, max_err) if k < max_iter - 1 else \
-            tukey_weight(en, max_err)
-        w = base_w * w_rob * (z > 1e-6)
-        lam = torch.full((), 1e-4, dtype=dt, device=X.device)
+        Rs, ts = red.to_shards(R, "ba.R"), red.to_shards(t, "ba.t")
+        w = []
+        for (ru, rv, z, _, _), bw in zip(residuals(Rs, ts, X), base_w):
+            en = torch.hypot(ru, rv)
+            w_rob = huber_weight(en, max_err) if k < max_iter - 1 else \
+                tukey_weight(en, max_err)
+            w.append(bw * w_rob * (z > 1e-6))
+        lam = torch.full((), 1e-4, dtype=dt, device=R.device)
         for _ in range(inner_iter):
-            Hcc, gc, Wcp, Hpp, gp, cost = _table_terms(
-                prob.K, R, t, X, prob.obs_px, w)
-            dc, dX = _table_schur(Hcc, gc, Wcp, Hpp, gp, lam,
-                                  prob.cam_fixed, prob.point_fixed)
-            finite = torch.all(torch.isfinite(dc)) & \
-                torch.all(torch.isfinite(dX))
-            dc = torch.where(finite & ~prob.cam_fixed[:, None], dc, zero)
-            dX = torch.where(prob.point_fixed | ~finite, zero, dX)
+            Rs, ts = red.to_shards(R, "ba.R"), red.to_shards(t, "ba.t")
+            lams = red.to_shards(lam, "ba.lam")
+            terms = [_table_terms(s.K, Rk, tk, Xk, s.obs_px, wk)
+                     for s, Rk, tk, Xk, wk in zip(shards, Rs, ts, X, w)]
+            elims = [_table_eliminate(Wcp, Hpp, gp, lk, s.point_fixed)
+                     for (_, _, Wcp, Hpp, gp, _), lk, s
+                     in zip(terms, lams, shards)]
+            Hcc = red.sum([tm[0] for tm in terms], "ba.Hcc")
+            gc = red.sum([tm[1] for tm in terms], "ba.gc")
+            cost = red.sum([tm[5] for tm in terms], "ba.cost")
+            Sred = red.sum([e[0] for e in elims], "ba.Sred")
+            Ygp = red.sum([e[1] for e in elims], "ba.Ygp")
+            dc = _table_camera_step(Hcc, gc, Sred, Ygp, lam, p0.cam_fixed)
+            dcs = red.to_shards(dc, "ba.dc")
+            dX = [_table_back_substitute(e[2], dck)
+                  for e, dck in zip(elims, dcs)]
+            finite = torch.all(torch.isfinite(dc)) & red.all(
+                [torch.all(torch.isfinite(d)) for d in dX], "ba.finite")
+            dc = torch.where(finite & ~p0.cam_fixed[:, None], dc, zero)
             dRs, dts = se3_exp(dc)
             R_new = dRs @ R
             t_new = torch.einsum("mij,mj->mi", dRs, t) + dts
-            X_new = X + dX
-            ru2, rv2, z2, _, _ = _residuals(prob.K, R_new, t_new, X_new,
-                                            prob.obs_px)
-            w2 = torch.where(z2 <= 1e-6, zero, w)
-            cost_new = torch.sum(w2 * (ru2 * ru2 + rv2 * rv2))
+            fins = red.to_shards(finite, "ba.finite")
+            X_new = [Xk + torch.where(s.point_fixed | ~fk,
+                                      torch.zeros_like(d), d)
+                     for Xk, s, fk, d in zip(X, shards, fins, dX)]
+            parts = []
+            for (ru2, rv2, z2, _, _), wk in zip(
+                    residuals(red.to_shards(R_new, "ba.R_new"),
+                              red.to_shards(t_new, "ba.t_new"), X_new), w):
+                w2 = torch.where(z2 <= 1e-6, torch.zeros_like(wk), wk)
+                parts.append(torch.sum(w2 * (ru2 * ru2 + rv2 * rv2)))
+            cost_new = red.sum(parts, "ba.cost_new")
             ok = (cost_new < cost) & finite
             R = torch.where(ok, R_new, R)
             t = torch.where(ok, t_new, t)
-            X = torch.where(ok, X_new, X)
+            X = [torch.where(ok_k, Xn, Xk) for ok_k, Xn, Xk
+                 in zip(red.to_shards(ok, "ba.ok"), X_new, X)]
             lam = torch.clamp(torch.where(ok, lam * 0.3, lam * 8.0),
                               1e-8, 1e8)
     R = orthonormalize_fast(R)
-    ru, rv, z, _, _ = _residuals(prob.K, R, t, X, prob.obs_px)
-    err = torch.hypot(ru, rv)
-    outlier = prob.obs_valid & ((err > max_err) | (z <= 1e-6))
-    w_fin = base_w * tukey_weight(err, max_err) * (z > 1e-6)
-    cost = torch.sum(w_fin * (ru * ru + rv * rv))
-    return BATableResult(R=R, t=t, X=X.T.contiguous(), obs_outlier=outlier,
-                         obs_err=err, cost=cost, obs_valid=prob.obs_valid)
+    out, costs = [], []
+    for s, bw, Xk, (ru, rv, z, _, _) in zip(
+            shards, base_w, X, residuals(red.to_shards(R, "ba.R"),
+                                         red.to_shards(t, "ba.t"), X)):
+        err = torch.hypot(ru, rv)
+        outlier = s.obs_valid & ((err > max_err) | (z <= 1e-6))
+        w_fin = bw * tukey_weight(err, max_err) * (z > 1e-6)
+        costs.append(torch.sum(w_fin * (ru * ru + rv * rv)))
+        out.append((Xk.T.contiguous(), outlier, err, s.obs_valid))
+    cost = red.sum(costs, "ba.cost")
+    res = [BATableResult(R=R, t=t, X=Xk, obs_outlier=o, obs_err=e, cost=cost,
+                         obs_valid=v) for Xk, o, e, v in out]
+    return res if mesh is not None else res[0]
 
 
 # ---------------------------------------------------------------------------
@@ -310,43 +402,73 @@ def _schur_solve(Hcc, Wcp, Hpp, gc, gp, lam, cam_fixed, point_fixed):
     return dc, dX
 
 
-def bundle_adjust(prob: BAProblem, max_err: float = 10.0, max_iter: int = 2,
-                  inner_iter: int = 10) -> BAResult:
+def bundle_adjust(prob, max_err: float = 10.0, max_iter: int = 2,
+                  inner_iter: int = 10, mesh=None):
     """Robust BA over an observation list: ``max_iter`` outer passes that
     reweight (Huber, Tukey on the last, tau = max_err), each of
     ``inner_iter`` damped Schur steps with accept/reject; outlier
-    out-flags at the end (bundleAdjustRobust's contract)."""
-    prob = prob._replace(obs_cam=prob.obs_cam.long(),
-                         obs_pt=prob.obs_pt.long())
-    dt = prob.X.dtype
-    base_w = prob.obs_valid.to(dt)
-    zero = torch.zeros((), dtype=dt, device=prob.X.device)
-    R, t, X = prob.R, prob.t, prob.X
-    args = (prob.obs_cam, prob.obs_pt, prob.obs_px)
+    out-flags at the end (bundleAdjustRobust's contract).
+
+    With ``mesh`` (the port of the JAX solver's ``axis_name``), ``prob`` is
+    a list of observation shards, shard k on ``mesh.devices[k]`` with the
+    whole camera and point side (``parallel.dist_ba.dist_bundle_adjust``
+    splits a problem so): each shard accumulates its normal-equation
+    blocks (Hcc, Wcp, Hpp, gc, gp, the cost) on its device, they are
+    summed on ``mesh.main``, the Schur step is taken there once and the
+    trial costs of the shards are summed there. Returns one result per
+    shard then, R, t, X and the cost on main and shared."""
+    shards = [s._replace(obs_cam=s.obs_cam.long(), obs_pt=s.obs_pt.long())
+              for s in (prob if mesh is not None else [prob])]
+    red = _Shards(mesh, len(shards))
+    p0 = shards[0]
+    dt = p0.X.dtype
+    base_w = [s.obs_valid.to(dt) for s in shards]
+    zero = torch.zeros((), dtype=dt, device=p0.X.device)
+    R, t, X = p0.R, p0.t, p0.X
+
+    def on_shards(R, t, X, tag=""):
+        return zip(shards, red.to_shards(R, f"ba.R{tag}"),
+                   red.to_shards(t, f"ba.t{tag}"),
+                   red.to_shards(X, f"ba.X{tag}"))
+
+    def project(s, Rk, tk, Xk):
+        return _project_res(s.K, Rk, tk, Xk, s.obs_cam, s.obs_pt, s.obs_px)
+
     for k in range(max_iter):
-        r, Xc, _, _ = _project_res(prob.K, R, t, X, *args)
-        en = torch.linalg.norm(r, dim=-1)
-        w_rob = huber_weight(en, max_err) if k < max_iter - 1 else \
-            tukey_weight(en, max_err)
-        w = base_w * w_rob * (Xc[:, 2] > 1e-6)
+        w = []
+        for (s, Rk, tk, Xk), bw in zip(on_shards(R, t, X), base_w):
+            r, Xc, _, _ = project(s, Rk, tk, Xk)
+            en = torch.linalg.norm(r, dim=-1)
+            w_rob = huber_weight(en, max_err) if k < max_iter - 1 else \
+                tukey_weight(en, max_err)
+            w.append(bw * w_rob * (Xc[:, 2] > 1e-6))
         lam = torch.full((), 1e-4, dtype=dt, device=X.device)
         for _ in range(inner_iter):
-            Hcc, Wcp, Hpp, gc, gp, cost = _ba_normal_terms(prob.K, R, t, X,
-                                                           prob, w)
-            dc, dX = _schur_solve(Hcc, Wcp, Hpp, gc, gp, lam, prob.cam_fixed,
-                                  prob.point_fixed)
+            terms = [_ba_normal_terms(s.K, Rk, tk, Xk, s, wk)
+                     for (s, Rk, tk, Xk), wk in zip(on_shards(R, t, X), w)]
+            Hcc, Wcp, Hpp, gc, gp, cost = (
+                red.sum([tm[i] for tm in terms], f"ba.{name}")
+                for i, name in enumerate(("Hcc", "Wcp", "Hpp", "gc", "gp",
+                                          "cost")))
+            dc, dX = _schur_solve(Hcc, Wcp, Hpp, gc, gp, lam, p0.cam_fixed,
+                                  p0.point_fixed)
             finite = torch.all(torch.isfinite(dc)) & \
                 torch.all(torch.isfinite(dX))
-            dc = torch.where(finite & ~prob.cam_fixed[:, None], dc, zero)
-            dX = torch.where(finite & ~prob.point_fixed[:, None], dX, zero)
+            dc = torch.where(finite & ~p0.cam_fixed[:, None], dc, zero)
+            dX = torch.where(finite & ~p0.point_fixed[:, None], dX, zero)
             dRs, dts = se3_exp(dc)
             R_new = dRs @ R
             t_new = torch.einsum("mij,mj->mi", dRs, t) + dts
             X_new = X + dX
-            r_new, Xc_new, _, _ = _project_res(prob.K, R_new, t_new, X_new,
-                                               *args)
-            w_new = torch.where(Xc_new[:, 2] <= 1e-6, zero, w)
-            cost_new = torch.sum(w_new * torch.sum(r_new * r_new, dim=-1))
+            parts = []
+            for (s, Rk, tk, Xk), wk in zip(
+                    on_shards(R_new, t_new, X_new, "_new"), w):
+                r_new, Xc_new, _, _ = project(s, Rk, tk, Xk)
+                w_new = torch.where(Xc_new[:, 2] <= 1e-6,
+                                    torch.zeros_like(wk), wk)
+                parts.append(torch.sum(w_new * torch.sum(r_new * r_new,
+                                                         dim=-1)))
+            cost_new = red.sum(parts, "ba.cost_new")
             ok = (cost_new < cost) & finite
             R = torch.where(ok, R_new, R)
             t = torch.where(ok, t_new, t)
@@ -354,10 +476,15 @@ def bundle_adjust(prob: BAProblem, max_err: float = 10.0, max_iter: int = 2,
             lam = torch.clamp(torch.where(ok, lam * 0.3, lam * 8.0),
                               1e-8, 1e8)
     R = orthonormalize_fast(R)
-    r, Xc, _, _ = _project_res(prob.K, R, t, X, *args)
-    err = torch.linalg.norm(r, dim=-1)
-    outlier = prob.obs_valid & ((err > max_err) | (Xc[:, 2] <= 1e-6))
-    w_fin = base_w * tukey_weight(err, max_err) * (Xc[:, 2] > 1e-6)
-    cost = torch.sum(w_fin * torch.sum(r * r, dim=-1))
-    return BAResult(R=R, t=t, X=X, obs_outlier=outlier, obs_err=err,
-                    cost=cost)
+    out, costs = [], []
+    for (s, Rk, tk, Xk), bw in zip(on_shards(R, t, X), base_w):
+        r, Xc, _, _ = project(s, Rk, tk, Xk)
+        err = torch.linalg.norm(r, dim=-1)
+        outlier = s.obs_valid & ((err > max_err) | (Xc[:, 2] <= 1e-6))
+        w_fin = bw * tukey_weight(err, max_err) * (Xc[:, 2] > 1e-6)
+        costs.append(torch.sum(w_fin * torch.sum(r * r, dim=-1)))
+        out.append((outlier, err))
+    cost = red.sum(costs, "ba.cost")
+    res = [BAResult(R=R, t=t, X=X, obs_outlier=o, obs_err=e, cost=cost)
+           for o, e in out]
+    return res if mesh is not None else res[0]

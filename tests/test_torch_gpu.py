@@ -6,7 +6,10 @@ kernels' general paths for radii above the tuned ones, the engine on the
 card against the same run on the CPU (one camera, and two on the rig),
 a tracked step that never waits on the host, the overlap mode's pinned
 buffers, asynchronous BA on a side stream, the batched render and the
-distortion warp, and checkpoints between the card and the CPU.
+distortion warp, checkpoints between the card and the CPU, and the
+multi-device layer: the mesh step's pixel work on one card and over
+distinct cards against the single-device step, the mesh step and the
+distributed BA without a wait on the host, BA on another device.
 Where no card is present each test skips (the decision is made inside
 the ``cuda`` fixture, never at import).
 
@@ -612,6 +615,126 @@ def test_async_ba_on_a_side_stream(cuda):
     torch.cuda.synchronize()
     for a, b in zip(before, tp.leaves(state_to_numpy(gpu.state))):
         np.testing.assert_array_equal(a, b)
+
+
+# --------------------------------------------------- multi-device layer ----
+
+def _mesh_front_end(mesh_devices, C=3):
+    """One frame's pixel work (pyramid, KLT and corner refill, NCC blocks)
+    of a bootstrapped C-camera engine on the card, the mesh's way (one
+    camera a shard on ``mesh_devices``) and the single-device way, from the
+    same state and reference pyramid."""
+    from coslam_torch.ops.ncc import extract_ncc_blocks_batched
+    from coslam_torch.ops.pyramid import build_pyramid
+    from coslam_torch.parallel.mesh import make_cam_mesh
+    from coslam_torch.slam import steps
+    from coslam_torch.slam.fused import (shard_advance_tracks, shard_frames,
+                                         shard_pyramid)
+    frames, _, _ = _card_frames(C, 14)
+    eng = _engine(C, "cuda")
+    for f in range(13):
+        eng.process_frame(frames[f])
+    assert eng.bootstrapped
+    cfg, st = eng.cfg, eng.state
+    pyr = build_pyramid(frames[13], cfg.klt.n_levels)
+    tracks = steps.advance_tracks(eng.pyr_prev, pyr, st.tracks, eng.K,
+                                  eng.kc, st.frame + 1, cfg)
+    blocks = extract_ncc_blocks_batched(pyr.imgs[0], tracks.raw,
+                                        cfg.p.ncc_patch_radius)
+    mesh = make_cam_mesh(devices=mesh_devices)
+    sp = shard_pyramid(mesh, eng.pyr_prev, eng.frame - 1, eng.K, eng.kc)
+    cur = sp.following(shard_frames(mesh, frames[13]))
+    m_tracks, m_blocks = shard_advance_tracks(sp, cur, st.tracks, cfg)
+    return st.tracks, (tracks, blocks), (m_tracks, m_blocks), mesh
+
+
+def _assert_front_ends_agree(valid_in, single, sharded):
+    """The KLT flip share of chip_smoke.py (0.5% of the features valid on
+    input), positions within 1e-3 px where both keep a feature, the NCC
+    blocks within 1e-5 where both cut one at the same position."""
+    (t1, (b1, ok1)), (t2, (b2, ok2)) = single, sharded
+    vin = valid_in.cpu()
+    flips = int((t1.valid.cpu() != t2.valid.cpu())[vin].sum())
+    assert flips <= max(1, 0.005 * int(vin.sum())), flips
+    both = (t1.valid & t2.valid).cpu()
+    assert float((t1.raw - t2.raw).abs().cpu()[both].max()) <= 1e-3
+    same = (ok1 & ok2 & (t1.raw == t2.raw).all(-1)).cpu()
+    assert same.sum() > 0.5 * both.sum()
+    assert float((b1 - b2).abs().cpu()[same].max()) <= 1e-5
+
+
+def test_mesh_front_end_on_one_card_matches_single_device(cuda):
+    """The mesh step's pixel work on ["cuda:0"] * 3 against the same work
+    on the whole camera batch."""
+    tracks, single, sharded, mesh = _mesh_front_end([cuda] * 3)
+    _assert_front_ends_agree(tracks.valid, single, sharded)
+    assert mesh.census[("to_main", "ncc.blocks")] == 3
+
+
+def test_mesh_front_end_over_distinct_cards(cuda):
+    """The same over one card a camera (cuda:0, cuda:1, ... round robin):
+    each shard's kernels launch on its own card."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two cards, the machine has {n}")
+    devs = [f"cuda:{k % n}" for k in range(3)]
+    tracks, single, sharded, _ = _mesh_front_end(devs)
+    _assert_front_ends_agree(tracks.valid, single, sharded)
+
+
+def test_mesh_step_and_dist_ba_never_wait_on_the_host(cuda):
+    """A warmed mesh step (["cuda:0"] * 3, stats packed) and the
+    distributed table BA enqueue with no synchronizing call."""
+    from coslam_torch.parallel.dist_ba import dist_bundle_adjust_table
+    from coslam_torch.parallel.mesh import make_cam_mesh
+    from coslam_torch.slam.fused import frame_step_packed, shard_frames
+    from coslam_torch.slam.steps import build_ba_table
+    C = 3
+    frames, _, _ = _card_frames(C, 15)
+    mesh = make_cam_mesh(devices=[cuda] * C)
+    eng = _engine(C, mesh.main, mesh=mesh)
+    for f in range(13):
+        eng.process_frame(frames[f])
+    assert eng.bootstrapped
+    args = (eng.K, eng.kc, eng.cfg)
+    imgs = [shard_frames(mesh, frames[f]) for f in (13, 14)]
+    st, pyr, _ = frame_step_packed(eng.state, eng.pyr_prev, imgs[0], *args,
+                                   mesh=mesh)
+    prob, _, _ = build_ba_table(st, eng.K, eng.cfg)
+    P = prob.X.shape[0] - prob.X.shape[0] % C
+    prob = type(prob)(prob.K, prob.R, prob.t, prob.X[:P],
+                      prob.obs_px[..., :P], prob.obs_valid[:, :P],
+                      prob.cam_fixed, prob.point_fixed[:P])
+    dist_bundle_adjust_table(prob, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, pyr, v = frame_step_packed(st, pyr, imgs[1], *args, mesh=mesh)
+        res = dist_bundle_adjust_table(prob, mesh)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(v).all() and torch.isfinite(res.cost)
+
+
+def test_async_ba_on_another_device(cuda):
+    """async_ba with ``ba_device`` another device than the engine's card:
+    cuda:1 where the machine has it, else the CPU. Every dispatched solve
+    is applied, the run stays in the CPU run's ATE bound, and the result
+    comes back to the engine's card."""
+    from coslam_torch.io.ate import ate_rmse
+    other = "cuda:1" if torch.cuda.device_count() > 1 else "cpu"
+    print(f"BA on {other}")
+    frames, Rs, ts = _card_frames(1, 30)
+    eng = _engine(1, "cuda:0", async_ba=True, ba_device=other)
+    for f in range(30):
+        eng.process_frame(frames[f])
+    eng._apply_pending_ba()
+    ba = eng.ba_async
+    assert ba["dispatched"] >= 2
+    assert ba["dispatched"] == sum(ba[k] for k in ("ready", "deferred",
+                                                   "flushed", "cancelled"))
+    assert eng.state.kfs.R.device == torch.device("cuda:0")
+    assert ate_rmse(*eng.trajectory(0, True), Rs[0], ts[0]) < 0.20
 
 
 def test_render_batch_and_warp_on_the_card(cuda):

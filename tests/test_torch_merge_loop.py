@@ -559,7 +559,8 @@ def test_large_err_armed_at_both_commit_sites(monkeypatch):
     # the fused step sees the window
     seen = []
 
-    def fake_step(*a, large_err=False):
+    def fake_step(*a, mesh=None, large_err=False):
+        assert mesh is None
         seen.append(large_err)
         raise StopIteration
 

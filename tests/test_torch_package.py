@@ -1,8 +1,8 @@
 """The PyTorch port as a package: it stands apart from JAX, its config and
 state match the JAX package's field by field, its kernel wrappers follow
 the dispatch rule (CPU tensors take the plain version), its ctypes
-bindings match the CUDA sources, and the parts outside this slice raise
-instead of running silently."""
+bindings match the CUDA sources, and every part of the JAX package's
+engine constructs (none is left to raise)."""
 
 import ast
 import dataclasses
@@ -235,13 +235,15 @@ def test_engine_needs_a_card_or_an_explicit_cpu(monkeypatch):
 
 
 def test_parts_outside_the_slice_raise():
-    """The engine modes (ported, A15) construct; meshes and BA on another
-    device than the engine's (A18) raise at construction. The group-merge
-    call site (ported, A14) tries a merge on a grouping tick past
-    merge_min_interval when two groups' maps could overlap, and then backs
-    off one tick while the bridge keeps failing."""
+    """The engine modes (ported, A15) construct, and so do a mesh and BA on
+    another device than the engine's (ported, A18): nothing of the JAX
+    package's engine raises any more. The group-merge call site (ported,
+    A14) tries a merge on a grouping tick past merge_min_interval when two
+    groups' maps could overlap, and then backs off one tick while the
+    bridge keeps failing."""
     from types import SimpleNamespace
     from coslam_torch.config import small_test_config
+    from coslam_torch.parallel.mesh import make_cam_mesh
     from coslam_torch.slam.pipeline import GROUPING_INTERVAL, CoSlamEngine
     cfg = small_test_config(1, 96, 128)
     K = np.array([[[100.0, 0, 64], [0, 100.0, 48], [0, 0, 1]]], np.float32)
@@ -253,10 +255,15 @@ def test_parts_outside_the_slice_raise():
         eng = CoSlamEngine(cfg, K, kc, device="cpu", **kw)
         for k, v in kw.items():
             assert getattr(eng, k) == v
-    with pytest.raises(NotImplementedError, match="A18"):
-        CoSlamEngine(cfg, K, kc, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A18"):
-        CoSlamEngine(cfg, K, kc, device="cpu", ba_device="cuda:1")
+    mesh = make_cam_mesh(devices=["cpu"])
+    eng = CoSlamEngine(cfg, K, kc, device="cpu", mesh=mesh)
+    assert eng.mesh is mesh and eng.device == mesh.main
+    eng = CoSlamEngine(cfg, K, kc, device="cpu", ba_device="cuda:1",
+                       async_ba=True)
+    assert eng.ba_device == "cuda:1"
+    assert eng._ba_dev == torch.device("cuda:1") != eng.device
+    assert not [p for p in (REPO / "coslam_torch").rglob("*.py")
+                if "NotImplementedError" in p.read_text()]
     cfg2 = small_test_config(2, 96, 128)
     eng = CoSlamEngine(cfg2, np.repeat(K, 2, 0), np.zeros((2, 5), np.float32),
                        device="cpu")

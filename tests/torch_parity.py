@@ -163,10 +163,12 @@ def _drive(eng, frames, snapshots, to_numpy_tree, handover=None):
 
 def _hand_over(eng, snap):
     """The port's engine takes over the JAX engine's bootstrap: its state,
-    pyramid, keyframe inliers and the trajectory so far."""
+    pyramid (split over the shards of a mesh engine), keyframe inliers and
+    the trajectory so far."""
     from coslam_torch.slam.state import state_from_numpy
     eng.state = state_from_numpy(snap["state"], eng.device)
-    eng.pyr_prev = pyramid_to_torch(snap["pyr"])
+    eng.adopt_pyramid(pyramid_to_torch(snap["pyr"]),
+                      int(snap["state"].frame))
     eng.kf_frames = list(snap["kf_frames"])
     eng._kf_inliers = snap["kf_inliers"].copy()
     eng.traj = [list(tr) for tr in snap["traj"]]
