@@ -30,10 +30,11 @@ points, 64 keyframes, BA window 5) in the synthetic room:
   videos, calibration files and an input.txt through the CLI
   (``coslam_torch.cli``, the native loader, the export), every camera's
   ATE from the exported poses; a checkpoint at frame 60 resumed against
-  the uninterrupted run; the loader alone, loader-fed against resident
-  frames, the feature log's synchronizing calls, checkpoint save and
-  load; TV-L1 flow on a pair of its frames, card against CPU;
-- fivecam_mesh, 100 of the reference's 150 frames (five cameras on a
+  the uninterrupted run to frame 80; the loader alone, loader-fed
+  against 20 resident frames, the feature log's synchronizing calls,
+  checkpoint save and load; TV-L1 flow on a pair of its frames, card
+  against CPU;
+- fivecam_mesh, 60 of the reference's 150 frames (five cameras on a
   rig, BASELINE config 5): the chunked engine (chunk=6) on a camera mesh,
   one camera a shard over the visible cards round robin (["cuda:0"] * 5
   on one card), the frames copied from the host to their shards: the
@@ -41,6 +42,14 @@ points, 64 keyframes, BA window 5) in the synthetic room:
   shard, each mesh step's transfers exactly the step contract (each
   shard's 11 track rows there and back, its NCC block pair back), no
   synchronizing call inside the step;
+- accuracy_harness: the port's accuracy harness
+  (``coslam_torch.examples.accuracy_bench``) in-process on its full
+  300-frame ``occlusion`` config (two cameras, camera 1's lens covered
+  over frames 75-135, seed 7, chunk=6, the frames staged as float16):
+  every row key present and finite, camera 1 split off during the
+  blackout, a realigning merge after uncover, one group at the end, the
+  ATE from 20 frames after uncover; then ``run_synthetic`` on the card
+  and ``visualize_results`` on an export of the occlusion run;
 and checks that the path's kernels ran (launch counts set to 0 just
 before a path and read just after it): build_pyramid, klt_track and
 ncc_blocks on every path, ncc_search once per searching closure attempt
@@ -63,14 +72,13 @@ frames (and the non-fused path over the same 30), two cameras over 20,
 and mono_loop cut to 150x200 over 181 frames (a loop closure). The CPU
 runs are made by one worker process while the card's phases run.
 
-torch.profiler traces 3 tracked frames of a fresh run of mono and
-threecam_dyn, and of splitmerge around its first merge (replayed from a
-copy of the engine taken two frames before it): device-busy time,
-the device's idle share and kernel launches per frame, in all and inside
-the ``build_pyramid``, ``klt_track`` and ``ncc_blocks`` ranges;
-``--profile-table PATH``
-also writes the operator tables to PATH (the others beside it, with a
-``.threecam`` and ``.splitmerge`` suffix).
+torch.profiler traces 3 tracked frames of mono (30-32) and threecam_dyn
+(20-22), and of splitmerge around its first merge, each replayed from a
+copy of its path's engine taken before the first of them: device-busy
+time, the device's idle share and kernel launches per frame, in all and
+inside the ``build_pyramid``, ``klt_track`` and ``ncc_blocks`` ranges;
+``--profile-table PATH`` also writes the operator tables to PATH (the
+others beside it, with a ``.threecam`` and ``.splitmerge`` suffix).
 
     python3 chip_smoke.py [--profile-table PATH]
     python3 chip_smoke.py --syncs-only   # the sync count alone
@@ -685,14 +693,8 @@ def ncc_search_agreement(img, gen):
 
 
 def kernel_counters():
-    from coslam_torch.ops.klt import klt_track
-    from coslam_torch.ops.ncc import extract_ncc_blocks_batched, ncc_search
-    from coslam_torch.ops.patches import extract_windows
-    from coslam_torch.ops.pyramid import build_pyramid
-    return {"build_pyramid": build_pyramid, "klt_track": klt_track,
-            "extract_windows": extract_windows,
-            "ncc_blocks": extract_ncc_blocks_batched,
-            "ncc_search": ncc_search}
+    from coslam_torch.ops import kernel_wrappers
+    return kernel_wrappers()
 
 
 def launch_checks(launches: dict, search: bool) -> dict:
@@ -744,7 +746,7 @@ def engine_copy(eng):
     new.__dict__.update(copy.deepcopy({
         k: v for k, v in eng.__dict__.items()
         if k not in ("_try_merge", "_try_loop_closure", "attempts",
-                     "snapshots")}))
+                     "snapshots", "syncs")}))
     return new
 
 
@@ -895,8 +897,10 @@ def phase_main_path(card: str):
     log(f"rendered {FRAMES} frames {tuple(frames.shape)} in "
         f"{time.perf_counter() - t0:.2f} s")
     t_run = time.perf_counter()
-    eng, frame_ms, launches = run_engine(cfg, K, frames, "cuda",
-                                         count_syncs=True)
+    # a copy before frame PROFILE_WARM[0] for the profile phase
+    eng, frame_ms, launches = run_engine(
+        cfg, K, frames, "cuda", count_syncs=True,
+        snapshot_when=lambda e: e.frame == PROFILE_WARM[0])
     Rs, ts = eng.trajectory(0, correct=True)
     run_s = time.perf_counter() - t_run
     ids, xyz, cov = eng.map_points()
@@ -936,7 +940,7 @@ def phase_main_path(card: str):
         "ATE < 2% of path": ate < 0.02 * path,
         **launch_checks(launches, search=False),
     })
-    return launches, (cfg, K, frames), len(eng.kf_frames)
+    return launches, (eng.snapshots[0][1], frames), len(eng.kf_frames)
 
 
 def phase_modes(card: str, frames, n_kf_default: int):
@@ -1158,7 +1162,10 @@ def phase_multicam_path(card: str):
     cfg = production_cfg(3)
     K = np.repeat(KPROD[None], 3, 0)
     t_run = time.perf_counter()
-    eng, frame_ms, launches = run_engine(cfg, K, frames, "cuda")
+    # a copy before frame PROFILE_WARM[1] for the profile phase
+    eng, frame_ms, launches = run_engine(
+        cfg, K, frames, "cuda",
+        snapshot_when=lambda e: e.frame == PROFILE_WARM[1])
     trajs = [eng.trajectory(c, correct=True) for c in range(3)]
     run_s = time.perf_counter() - t_run
     ids, xyz, cov = eng.map_points()
@@ -1205,7 +1212,7 @@ def phase_multicam_path(card: str):
         "inter-camera points": n_inter > 0,
         **launch_checks(launches, search=False),
     })
-    return launches, (cfg, K, frames)
+    return launches, (eng.snapshots[0][1], frames)
 
 
 def boot_frame(eng):
@@ -1412,6 +1419,7 @@ def phase_splitmerge_path(card: str):
     launches, a copy of the engine from two frames before the first
     merge, the frames, that copy's next frame)."""
     from coslam_torch.io.ate import ate_rmse, camera_centers
+    from coslam_torch.slam.pipeline import GROUPING_INTERVAL
     n = LONG_FRAMES
     t0 = time.perf_counter()
     frames, Rs_gt, ts_gt = splitmerge_scene(n, "cuda")
@@ -1421,11 +1429,14 @@ def phase_splitmerge_path(card: str):
     cfg = production_cfg(2)
     K = np.repeat(KPROD[None], 2, 0)
     t_run = time.perf_counter()
-    # copies of the engine from the frames before the first merge, split
-    # and unmerged (the profile replays the merge from one)
+    # copies of the engine, split and unmerged, two frames before each
+    # grouping tick (merges are attempted on the tick only): the last one
+    # is taken two frames before the first merge, which the profile
+    # replays from it
     eng, frame_ms, launches = run_engine(
         cfg, K, frames, "cuda", snapshot_when=lambda e: not e.merge_log and
-        len(set(e.group_id.tolist())) > 1)
+        len(set(e.group_id.tolist())) > 1
+        and e.frame - e._last_grouping == GROUPING_INTERVAL - 2)
     trajs = [eng.trajectory(c, correct=True, chain_scales=True)
              for c in range(2)]
     run_s = time.perf_counter() - t_run
@@ -1465,7 +1476,7 @@ def phase_splitmerge_path(card: str):
                            and np.isfinite(cov).all()),
         **launch_checks(launches, search=False),
     })
-    f0, snap = eng.snapshots[0]     # two frames before the first merge
+    f0, snap = eng.snapshots[-1]    # two frames before the first merge
     return launches, snap, frames, f0
 
 
@@ -1536,17 +1547,8 @@ def phase_mono_loop_path(card: str):
     return launches
 
 
-def warmed_engine(cfg, K, frames, warm: int):
-    """A fresh engine on the card driven over the first ``warm`` frames."""
-    from coslam_torch.slam.pipeline import CoSlamEngine
-    C = cfg.num_cameras
-    eng = CoSlamEngine(cfg, K, np.zeros((C, 5), np.float32), device="cuda")
-    for f in range(warm):
-        eng.process_frame(frames[f])
-    return eng
-
-
 PROFILE_FRAMES = 3               # tracked frames a profile phase traces
+PROFILE_WARM = (30, 20)          # where mono's and threecam_dyn's start
 
 
 def phase_profile(eng, frames, warm: int, card: str, table_path,
@@ -1624,9 +1626,9 @@ def phase_profile(eng, frames, warm: int, card: str, table_path,
 
 
 DIST_FRAMES = 100                # of the reference's 300 (ACCURACY.md:20)
-DIST_RESUME = 100                # frames of the checkpoint run
+DIST_RESUME = 80                 # frames of the checkpoint run
 DIST_SAVE = 60                   # its checkpoint's frame
-DIST_RESIDENT = 40               # frames of the resident-frames run
+DIST_RESIDENT = 20               # frames of the resident-frames run
 # the CPU's TV-L1 flow against the card's on the same pair: float32
 # elementwise rounding differs (the card contracts multiply-adds), and 180
 # primal-dual iterations carry it
@@ -1755,17 +1757,17 @@ def phase_distorted_io(card: str):
       input_videos.txt parse; build_pyramid on every frame, klt_track on
       every tracked one, ncc_blocks launched;
     - run B: an engine fed by FrameLoader (native) with log_features saves
-      a checkpoint at frame 60 and runs to 100; a fresh engine loads it
+      a checkpoint at frame 60 and runs to 80; a fresh engine loads it
       (frame, keyframes, groups, merge log and the reference pyramid as
       saved) and runs on from a loader started at frame 60: its tracked
       poses within 1% of run B's camera-0 path (RMS of the camera
       centres, B's path from its bootstrap on) of run B's, or, where the
       two uninterrupted runs A and B bootstrap at the same frame and
       drift further apart than that (Sim(3)-aligned centres over frames
-      0-99: the card's atomic sums change order from run to run), within
+      0-79: the card's atomic sums change order from run to run), within
       that drift; the exported featpts hold every frame after the
       bootstrap of every camera;
-    - run C: the first 40 frames resident on the card (no loader, no
+    - run C: the first 20 frames resident on the card (no loader, no
       log).
     Recorded: the loader's frames/s alone, the tracked-frame wall medians
     (A: loader-fed; C: resident), synchronizing calls a tracked frame with
@@ -1935,11 +1937,11 @@ def phase_distorted_io(card: str):
         f"camera-0 path {path_b:.4f}); runs A and B apart (Sim(3)-aligned) "
         f"by {drift and [round(100 * d / path_b, 4) for d in drift]}%; "
         f"bound {bound:.6f}")
-    _, _, syncs_a100 = clock_a.tracked(eng_a, upto=DIST_RESUME)
+    _, _, syncs_a_b = clock_a.tracked(eng_a, upto=DIST_RESUME)
     log(f"distorted_io: frames 0-{DIST_RESUME - 1} loader-fed: with the "
         f"feature log (run B) tracked-frame wall median {med_b:.3f} ms, "
         f"{syncs_b:.3f} synchronizing calls a tracked frame; without it "
-        f"(run A) {syncs_a100:.3f}")
+        f"(run A) {syncs_a_b:.3f}")
     failed += failed_checks("distorted_io resume", {
         **{f"loaded {k}": v for k, v in loaded.items()},
         "resumed trajectory finite": all(np.isfinite(R).all()
@@ -1956,11 +1958,11 @@ def phase_distorted_io(card: str):
         for f in range(DIST_RESIDENT):
             eng_c.process_frame(resident[f])
     med_c, _, syncs_c = clock_c.tracked(eng_c)
-    med_a40, _, syncs_a40 = clock_a.tracked(eng_a, upto=DIST_RESIDENT)
+    med_a_c, _, syncs_a_c = clock_a.tracked(eng_a, upto=DIST_RESIDENT)
     log(f"distorted_io: frames 0-{DIST_RESIDENT - 1}: tracked-frame wall "
-        f"median loader-fed {med_a40:.3f} ms (run A) against resident "
+        f"median loader-fed {med_a_c:.3f} ms (run A) against resident "
         f"{med_c:.3f} ms (run C, bootstrap {boot_frame(eng_c)}); "
-        f"synchronizing calls a tracked frame {syncs_a40:.3f} and "
+        f"synchronizing calls a tracked frame {syncs_a_c:.3f} and "
         f"{syncs_c:.3f}; card {card}")
     # TV-L1 flow on a pair of these frames, card against CPU
     pair = frames[0], frames[1]
@@ -1980,7 +1982,7 @@ def phase_distorted_io(card: str):
     return launches
 
 
-MESH_FRAMES = 100                # of fivecam_mesh's 150 (ACCURACY.md:23)
+MESH_FRAMES = 60                 # of fivecam_mesh's 150 (ACCURACY.md:23)
 MESH_CHUNK = 6                   # examples/accuracy_bench.py:136
 BA_REPS = 5                      # timed solves of each BA, median
 
@@ -1988,8 +1990,8 @@ BA_REPS = 5                      # timed solves of each BA, median
 def mesh_devices(n: int) -> list[str]:
     """One shard a camera over the visible cards, round robin: on one card
     every shard is cuda:0."""
-    count = torch.cuda.device_count()
-    return [f"cuda:{k % count}" for k in range(n)]
+    from coslam_torch.parallel.mesh import round_robin
+    return round_robin(n)
 
 
 def fivecam_scene(n_frames: int, dev):
@@ -2086,7 +2088,7 @@ def mesh_census_log(mesh) -> dict:
 
 def phase_fivecam_mesh(card: str):
     """fivecam_mesh (BASELINE config 5, examples/accuracy_bench.py:292-322)
-    at the production configuration: five cameras on a rig, 100 of its 150
+    at the production configuration: five cameras on a rig, 60 of its 150
     frames, the chunked engine (chunk=6) on a mesh of one camera a shard
     over mesh_devices, the frames copied from the host straight to their
     shards. The wide-baseline bootstrap by frame 2, one group, every
@@ -2323,6 +2325,101 @@ def phase_parallel(card: str, mono_frames):
     })
 
 
+ACC_KEYS = ("config", "cams", "frames", "shape", "ate", "ate_max",
+            "ate_pct_path", "path_len", "fps", "n_merges", "merges_noop",
+            "n_loops", "n_keyframes", "eval_from")
+SYNTHETIC_ATE = 0.20             # run_synthetic's own bound
+
+
+def phase_accuracy_harness(card: str):
+    """The port's accuracy harness in-process
+    (``coslam_torch.examples.accuracy_bench``): config_occlusion at its full
+    300 frames, 480x640, seed 7, through the harness's chunked engine
+    (chunk=6, the frames staged as float16 on the card). Camera 1's lens is
+    covered over frames f0..f1 (75..135). Checked: every row key present
+    and finite; camera 1 in another group than camera 0 somewhere in frames
+    f0+10..f1+10 (tests/test_occlusion.py); a merge with ``noop`` False at
+    a frame >= f1; one group at the end; the max ATE scored from f1+20
+    under 2% of camera 0's path; the path's kernels launched. Then
+    run_synthetic's ``main()`` on the card (return code 0, ATE under
+    0.20), and visualize_results on an export of the occlusion run: a PLY
+    whose vertex count is the map points plus 8 (F - 1) a camera. Returns
+    the occlusion run's kernel launches."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+    from coslam_torch.examples import (accuracy_bench, run_synthetic,
+                                       visualize_results)
+    from coslam_torch.io.export import export_results
+    F = accuracy_bench.DEFAULT_FRAMES["occlusion"]
+    f0, f1 = int(F * 0.25), int(F * 0.45)
+    engines = {}
+    held = reset_peak_memory()
+    t0 = time.perf_counter()
+    row = accuracy_bench.config_occlusion(
+        F, np.random.default_rng(accuracy_bench.SEED), engines=engines)
+    log(f"accuracy_harness: occlusion {F} frames in "
+        f"{time.perf_counter() - t0:.2f} s (the render included)")
+    eng = engines.pop("occlusion")
+    gh = eng.group_hist
+    trans = [(i, g) for i, g in enumerate(gh) if i and g != gh[i - 1]]
+    numbers = [row[k] for k in ("ate_max", "ate_pct_path", "path_len",
+                                "fps", "peak_mem_mib")] + row["ate"]
+    log(f"accuracy_harness: row {json.dumps(row)}")
+    log(f"accuracy_harness: group transitions {trans}")
+    log("accuracy_harness: merge_log " + json.dumps([
+        {k: (round(v, 6) if isinstance(v, float) else v)
+         for k, v in m.items()} for m in eng.merge_log]))
+    log(f"accuracy_harness: wall {1e3 / row['fps']:.3f} ms a frame "
+        f"(chunk=6, one sync at the end); peak device memory "
+        f"{row['peak_mem_mib']} MiB (held at the phase's start {held}); "
+        f"kernel launches {row['launches']}; card {card}")
+    checks = {
+        "every row key present and finite":
+            all(k in row for k in ACC_KEYS)
+            and bool(np.isfinite(np.asarray(numbers, float)).all()),
+        "camera 1 in another group during the blackout":
+            any(g[0] != g[1] for g in gh[f0 + 10:f1 + 10]),
+        "a realigning merge (noop False) at frame >= f1":
+            any(not m.get("noop") and m["frame"] >= f1
+                for m in eng.merge_log),
+        "one group at the end": gh[-1][0] == gh[-1][1],
+        "max ATE from f1+20 < 2% of camera 0's path":
+            row["ate_max"] < 0.02 * row["path_len"],
+        **launch_checks(row["launches"], search=False),
+    }
+    # the synthetic smoke run, on the card
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = run_synthetic.main([])
+    found = re.search(r"ATE: ([0-9.]+)", out.getvalue())
+    ate = float(found.group(1)) if found else float("nan")
+    log(f"accuracy_harness: run_synthetic rc {rc}, ATE {ate} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    checks["run_synthetic: return code 0"] = rc == 0
+    checks[f"run_synthetic: ATE < {SYNTHETIC_ATE}"] = ate < SYNTHETIC_ATE
+    # the viewer, on an export of the occlusion run
+    with tempfile.TemporaryDirectory() as root:
+        export_results(root, eng)
+        ids, _, _ = eng.map_points()
+        written = visualize_results.main([root])
+        with open(written[0]) as fh:
+            header = fh.read(400)
+    found = re.search(r"element vertex (\d+)", header)
+    n_vert = int(found.group(1)) if found else -1
+    want = len(ids) + visualize_results.DENSIFY * (F - 1) * row["cams"]
+    log(f"accuracy_harness: visualize_results wrote "
+        f"{[os.path.basename(w) for w in written]}, {n_vert} PLY vertices "
+        f"({len(ids)} map points + {visualize_results.DENSIFY} x {F - 1} "
+        f"a camera)")
+    checks["PLY vertices: map points + 8 (F - 1) a camera"] = n_vert == want
+    del eng, engines
+    check("accuracy_harness", checks)
+    return row["launches"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile-table", default=None,
@@ -2367,23 +2464,25 @@ def run_phases(smi: str, cpu_runs: dict, args, lap):
     lap("kernels")
     phase_small_agreement(cpu_runs)
     lap("small agreement")
-    mono, (cfg, K, frames), n_kf = phase_main_path(smi)
+    mono, (snap, frames), n_kf = phase_main_path(smi)
     mono_frames = frames
     lap("mono")
+    phase_profile(snap, frames, PROFILE_WARM[0], smi, args.profile_table,
+                  label="mono")
+    del snap
+    lap("mono profile")
     modes = phase_modes(smi, frames, n_kf)
     lap("modes")
     phase_non_fused_small_agreement(cpu_runs)
     lap("non-fused small agreement")
-    phase_profile(warmed_engine(cfg, K, frames, 30), frames, 30, smi,
-                  args.profile_table, label="mono")
-    lap("mono profile")
     two_camera = phase_multicam_small_agreement(cpu_runs)
     lap("two-camera small agreement")
-    multi, (cfg, K, frames) = phase_multicam_path(smi)
+    multi, (snap, frames) = phase_multicam_path(smi)
     lap("threecam_dyn")
-    phase_profile(warmed_engine(cfg, K, frames, 20), frames, 20, smi,
+    phase_profile(snap, frames, PROFILE_WARM[1], smi,
                   args.profile_table and args.profile_table + ".threecam",
                   label="threecam_dyn")
+    del snap
     lap("threecam_dyn profile")
     phase_loop_small_agreement(cpu_runs)
     lap("loop small agreement")
@@ -2404,9 +2503,11 @@ def run_phases(smi: str, cpu_runs: dict, args, lap):
     lap("fivecam_mesh")
     phase_parallel(smi, mono_frames)
     lap("parallel")
+    harness = phase_accuracy_harness(smi)
+    lap("accuracy_harness")
     by_path = {"mono": mono, "modes": modes, "threecam_dyn": multi,
                "splitmerge": split, "mono_loop": loop, "distorted_io": dist,
-               "fivecam_mesh": fivecam}
+               "fivecam_mesh": fivecam, "accuracy_harness": harness}
     return per_shape, by_path
 
 

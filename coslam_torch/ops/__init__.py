@@ -11,3 +11,15 @@ from coslam_torch.ops.klt import klt_track, KLTResult  # noqa: F401
 from coslam_torch.ops.corners import detect_corners, cornerness_map  # noqa: F401
 from coslam_torch.ops.ncc import extract_ncc_blocks_batched  # noqa: F401
 from coslam_torch.ops.flow import tvl1_flow  # noqa: F401
+
+
+def kernel_wrappers() -> dict:
+    """The CUDA kernels' wrappers by kernel name. Each counts in its
+    ``launches`` attribute the launches of its kernel (CUDA tensors only);
+    callers set the counts to 0 before a run and read them after it."""
+    from coslam_torch.ops.ncc import ncc_search
+    from coslam_torch.ops.patches import extract_windows
+    return {"build_pyramid": build_pyramid, "klt_track": klt_track,
+            "extract_windows": extract_windows,
+            "ncc_blocks": extract_ncc_blocks_batched,
+            "ncc_search": ncc_search}

@@ -29,6 +29,8 @@ from collections import Counter
 
 import torch
 
+from coslam_torch.util import resolve_device
+
 TO_SHARD, TO_MAIN = "to_shard", "to_main"
 
 
@@ -121,6 +123,17 @@ def make_cam_mesh(n: int | None = None, devices=None) -> CamMesh:
         raise RuntimeError(f"need {max(n, 1)} CUDA devices, have {have}; "
                            "pass devices= for a mesh of other devices")
     return CamMesh([f"cuda:{i}" for i in range(n)])
+
+
+def round_robin(n: int, device=None) -> list[str]:
+    """``n`` mesh devices: the visible cards round robin (``["cuda:0"] * n``
+    on one card), or ``device`` repeated when it names another device
+    (``["cpu"] * n``). Raises without a card unless ``device`` is given."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return [str(dev)] * n
+    count = torch.cuda.device_count()
+    return [f"cuda:{k % count}" for k in range(n)]
 
 
 def shard_state(state, mesh: CamMesh):

@@ -847,17 +847,8 @@ def test_init_map_multicam_distorted(monkeypatch):
     from coslam_torch.slam import initmap as ti
     from coslam_torch.slam.pipeline import CoSlamEngine
 
-    def jax_samples(gen, mask, n_hyp, size):
-        logits = jnp.where(jnp.asarray(tp.n(mask)), 0.0, -1e9)
-        key = jax.random.PRNGKey(gen.initial_seed())
-        return torch.from_numpy(np.asarray(jax.random.categorical(
-            key, logits[None, :], shape=(n_hyp, size))).astype(np.int64))
-
-    def jax_seed(gen):
-        return int(jax.random.randint(jax.random.PRNGKey(gen.initial_seed()),
-                                      (), 0, 2 ** 31 - 1))
-    monkeypatch.setattr(tepi, "sample_indices", jax_samples)
-    monkeypatch.setattr(tepi, "sample_seed", jax_seed)
+    monkeypatch.setattr(tepi, "sample_indices", tp.jax_samples)
+    monkeypatch.setattr(tepi, "sample_seed", tp.jax_seed)
     K, KK, kc, Rs, ts, frames, cfg = _distorted_rig()
     nc, n = kc.shape[0], frames.shape[0]
     w = cfg.image_width
@@ -903,8 +894,8 @@ def test_init_map_multicam_distorted(monkeypatch):
                 x1[:len(pair_a)] = xn[i][pair_a]
                 x2[:len(pair_a)] = xn[j][m[pair_a]]
                 mask = torch.arange(N) < len(pair_a)
-                idx = jax_samples(torch.Generator().manual_seed(17 * i + j),
-                                  mask, 256, 8)
+                idx = tp.jax_samples(
+                    torch.Generator().manual_seed(17 * i + j), mask, 256, 8)
                 Ft = tepi.fit_fundamental(x1[idx], x2[idx],
                                           torch.ones(idx.shape))
                 got = ((tepi.sampson_error(Ft, x1[None], x2[None]) < 3e-5)

@@ -9,7 +9,10 @@ imported only by the helpers that run it, so the tests that need the card
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
+import pytest
 import torch
 
 from coslam_torch.ops.pyramid import Pyramid as TPyramid
@@ -383,6 +386,134 @@ def reference_stability(C: int, n: int, forward: float, **engine_kw):
     b = run_jax_engine((frames + noise).astype(np.float32), **engine_kw)
     gap, path = aligned_gap(b["traj"], a["traj"])
     return 100 * gap / path, len(set(a["kf_frames"]) ^ set(b["kf_frames"]))
+
+
+def _jax_categorical(key, allowed, shape) -> torch.Tensor:
+    """Indices of the True entries of ``allowed`` drawn as the JAX package
+    draws them (``jax.random.categorical`` over flat logits)."""
+    import jax
+    import jax.numpy as jnp
+    logits = jnp.where(jnp.asarray(n(allowed)), 0.0, -1e9)
+    return torch.from_numpy(np.asarray(jax.random.categorical(
+        key, logits[None, :], shape=shape)).astype(np.int64))
+
+
+def jax_samples(gen, mask, n_hyp: int, size: int) -> torch.Tensor:
+    """The JAX package's epipolar RANSAC samples for the port's generator
+    ``gen`` (``jax.random`` keyed by its integer seed): a stand-in for
+    ``coslam_torch.geometry.epipolar.sample_indices``."""
+    import jax
+    return _jax_categorical(jax.random.PRNGKey(gen.initial_seed()), mask,
+                            (n_hyp, size))
+
+
+def jax_seed(gen) -> int:
+    """The JAX package's sample seed for ``gen``: a stand-in for
+    ``coslam_torch.geometry.epipolar.sample_seed``."""
+    import jax
+    return int(jax.random.randint(jax.random.PRNGKey(gen.initial_seed()),
+                                  (), 0, 2 ** 31 - 1))
+
+
+@contextlib.contextmanager
+def jax_ransac_draws():
+    """While entered, the port's RANSAC draws are the JAX package's
+    (``jax.random`` from the same integer seeds): the epipolar samples of
+    the bootstrap and the map init (``jax_samples``, ``jax_seed``) and the
+    merge bridge's PROSAC-tiered PnP samples (``pnp._draw``; its three
+    tiers drawn from the seed's key split in three, as
+    ``coslam_tpu/geometry/pnp.py`` draws them). The two packages then
+    differ in float32 sums only."""
+    import jax
+    from coslam_torch.geometry import epipolar as tepi
+    from coslam_torch.geometry import pnp as tpnp
+    tier = {"gen": None, "k": 0}
+
+    def draw(gen, allowed, count, size):
+        # one ransac_pnp call draws its three tiers from one generator
+        if gen is not tier["gen"]:
+            tier.update(gen=gen, k=0)
+        key = jax.random.split(jax.random.PRNGKey(gen.initial_seed()),
+                               3)[tier["k"]]
+        tier["k"] += 1
+        return _jax_categorical(key, allowed, (count, size))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tepi, "sample_indices", jax_samples)
+        mp.setattr(tepi, "sample_seed", jax_seed)
+        mp.setattr(tpnp, "_draw", draw)
+        yield
+
+
+def run_scenario(frames):
+    """Both packages' default engines at small_test_config(C, H, W) over
+    the same ``frames`` [F, C, H, W] (the port's on the CPU, drawing the
+    JAX package's RANSAC samples: ``jax_ransac_draws``). Returns
+    {"jax": run, "port": run}, each run a dict: ``groups`` (the group ids
+    after every frame), ``merge_log``, ``trajs`` (per camera, corrected)
+    and ``trajs_chain`` (corrected with chain scales). Prints both runs'
+    group transitions and merges."""
+    from coslam_tpu.config import small_test_config as jcfg
+    from coslam_tpu.slam.pipeline import CoSlamEngine as JEngine
+    from coslam_torch.config import small_test_config as tcfg
+    from coslam_torch.slam.pipeline import CoSlamEngine as TEngine
+    C = frames.shape[1]
+    K, kc = kmats(C)
+    out = {}
+    for name, eng in (("jax", JEngine(jcfg(C, H, W), K, kc)),
+                      ("port", TEngine(tcfg(C, H, W), K, kc,
+                                       device="cpu"))):
+        groups = []
+        with jax_ransac_draws():
+            for f in range(frames.shape[0]):
+                eng.process_frame(frames[f])
+                groups.append(tuple(eng.group_id.tolist()))
+        out[name] = dict(
+            groups=groups, merge_log=[dict(m) for m in eng.merge_log],
+            trajs=[tuple(np.asarray(a) for a in eng.trajectory(c, True))
+                   for c in range(C)],
+            trajs_chain=[tuple(np.asarray(a) for a in eng.trajectory(
+                c, True, chain_scales=True)) for c in range(C)])
+        print(f"{name}: group transitions {transitions(groups)}; merges "
+              f"{out[name]['merge_log']}", flush=True)
+    return out
+
+
+def partition(groups) -> tuple:
+    """A camera grouping with its ids renumbered in order of first
+    appearance, so that two runs that name the same split otherwise
+    compare equal."""
+    first = {}
+    return tuple(first.setdefault(g, len(first)) for g in groups)
+
+
+def transitions(groups) -> list:
+    """(frame, partition) at every frame whose grouping differs from the
+    frame before."""
+    return [(i, partition(g)) for i, g in enumerate(groups)
+            if i and partition(g) != partition(groups[i - 1])]
+
+
+def assert_transitions_agree(a, b, frames: int = 2):
+    """The same sequence of groupings, each reached within ``frames``
+    frames of the other run's."""
+    ta, tb = transitions(a), transitions(b)
+    assert [p for _, p in ta] == [p for _, p in tb], (ta, tb)
+    for (fa, _), (fb, _) in zip(ta, tb):
+        assert abs(fa - fb) <= frames, (ta, tb)
+
+
+def assert_merges_agree(a, b, frames: int = 2, matches: float = 0.2):
+    """The same merges: count, ``noop`` and ``reunify`` flags, each merge's
+    frame within ``frames`` frames, and bridge matches within the share
+    ``matches`` of the reference's (``b``)."""
+    assert len(a) == len(b), (a, b)
+    for ma, mb in zip(a, b):
+        for k in ("noop", "reunify"):
+            assert bool(ma.get(k)) == bool(mb.get(k)), (k, ma, mb)
+        assert abs(ma["frame"] - mb["frame"]) <= frames, (ma, mb)
+        assert abs(ma["n_matches"] - mb["n_matches"]) \
+            <= matches * mb["n_matches"], (ma, mb)
 
 
 if __name__ == "__main__":
