@@ -50,6 +50,13 @@ points, 64 keyframes, BA window 5) in the synthetic room:
   blackout, a realigning merge after uncover, one group at the end, the
   ATE from 20 frames after uncover; then ``run_synthetic`` on the card
   and ``visualize_results`` on an export of the occlusion run;
+- timing_tools: the four timing tools (``coslam_torch.examples.
+  profile_stages``, ``profile_ablate``, ``profile_ba``,
+  ``profile_engine``) through their ``main`` at the bench shapes (3
+  cameras at 480x640; the BA at 15 cameras x 2048 points), logging every
+  number they return: all finite, the stage tool's pyramid, KLT and
+  new-points stages launching build_pyramid, klt_track and ncc_blocks
+  each call, and no tool on a plain version;
 and checks that the path's kernels ran (launch counts set to 0 just
 before a path and read just after it): build_pyramid, klt_track and
 ncc_blocks on every path, ncc_search once per searching closure attempt
@@ -76,7 +83,9 @@ torch.profiler traces 3 tracked frames of mono (30-32) and threecam_dyn
 (20-22), and of splitmerge around its first merge, each replayed from a
 copy of its path's engine taken before the first of them: device-busy
 time, the device's idle share and kernel launches per frame, in all and
-inside the ``build_pyramid``, ``klt_track`` and ``ncc_blocks`` ranges;
+inside the ``build_pyramid``, ``klt_track`` and ``ncc_blocks`` ranges
+(read from the profiler's raw events; the operator tables only with
+``--profile-table``);
 ``--profile-table PATH`` also writes the operator tables to PATH (the
 others beside it, with a ``.threecam`` and ``.splitmerge`` suffix).
 
@@ -1551,6 +1560,45 @@ PROFILE_FRAMES = 3               # tracked frames a profile phase traces
 PROFILE_WARM = (30, 20)          # where mono's and threecam_dyn's start
 
 
+def range_launches(prof, names, n: int) -> dict:
+    """Launches and device time per frame inside each named
+    record_function range of a finished torch.profiler run over ``n``
+    frames, read from the raw trace (the FunctionEvent tree and its
+    aggregation take 34-58 s over a profile's ~10^5 events): the CUDA
+    runtime calls (cudaLaunchKernel, cudaLaunchCooperativeKernel,
+    cudaMemcpyAsync, ...) that start inside a range on the host, and the
+    device activities they started, matched by CUPTI correlation id (the
+    kernels of a ctypes library are attached to no operator, so the
+    range's own device time does not see them). The host drives the card
+    from one thread here, so a runtime call belongs to the ranges whose
+    span holds its start."""
+    import bisect
+    cuda = torch.autograd.DeviceType.CUDA
+    on_device, runtime, spans = {}, [], {k: [] for k in names}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            on_device.setdefault(e.correlation_id(), []).append(e)
+        elif e.name().startswith("cu"):
+            runtime.append((e.start_ns(), e.correlation_id()))
+        elif e.name() in spans:
+            spans[e.name()].append((e.start_ns(), e.end_ns()))
+    runtime.sort()
+    starts = [r[0] for r in runtime]
+    out = {}
+    for name, sp in spans.items():
+        acts = [a for t0, t1 in sp
+                for _, corr in runtime[bisect.bisect_left(starts, t0):
+                                       bisect.bisect_right(starts, t1)]
+                for a in on_device.get(corr, [])]
+        out[name] = dict(
+            calls_per_frame=len(sp) / n,
+            launches_per_frame=len(acts) / n,
+            device_ms_per_frame=sum(a.duration_ns() for a in acts)
+            / 1e6 / n,
+            kernels=sorted({a.name()[:60] for a in acts}))
+    return out
+
+
 def phase_profile(eng, frames, warm: int, card: str, table_path,
                   label: str):
     """torch.profiler over the next PROFILE_FRAMES tracked frames of
@@ -1559,6 +1607,7 @@ def phase_profile(eng, frames, warm: int, card: str, table_path,
     frame, the device's idle share, kernel launches per frame, and (to
     ``table_path``, when given) the table of operators by device time."""
     from torch.profiler import ProfilerActivity, profile
+    from coslam_torch.examples.profile_ablate import device_busy_us
     n = PROFILE_FRAMES
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1568,42 +1617,10 @@ def phase_profile(eng, frames, warm: int, card: str, table_path,
             eng.process_frame(frames[f])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    busy_us, launches = 0.0, 0
-    ka = prof.key_averages()            # aggregated once: ~100k+ events
-    for e in ka:
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            busy_us += e.self_device_time_total
-            launches += e.count
+    busy_us, launches = device_busy_us(prof)
     busy_ms = busy_us / 1e3 / n
-
-    # launches inside a range: the CUDA runtime calls (cudaLaunchKernel,
-    # cudaLaunchCooperativeKernel, cudaMemcpyAsync, ...) nested in it on the
-    # host, and the device activities they started, matched by CUPTI
-    # correlation id (the kernels of a ctypes library are attached to no
-    # operator, so the range's own device time does not see them)
-    events = prof.events()
-    on_device = {}
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            on_device.setdefault(e.id, []).append(e)
-
-    def runtime_calls(e):
-        out = [e] if e.name.startswith("cu") else []
-        for ch in e.cpu_children:
-            out += runtime_calls(ch)
-        return out
-    ranges = {}
-    for name in ("build_pyramid", "klt_track", "ncc_blocks"):
-        evs = [e for e in events if e.name == name
-               and e.device_type == torch.autograd.DeviceType.CPU]
-        acts = [a for e in evs for rt in runtime_calls(e)
-                for a in on_device.get(rt.id, [])]
-        ranges[name] = dict(
-            calls_per_frame=len(evs) / n,
-            launches_per_frame=len(acts) / n,
-            device_ms_per_frame=sum(a.time_range.elapsed_us()
-                                    for a in acts) / 1e3 / n,
-            kernels=sorted({a.name[:60] for a in acts}))
+    ranges = range_launches(prof, ("build_pyramid", "klt_track",
+                                   "ncc_blocks"), n)
 
     if table_path:
         os.makedirs(os.path.dirname(os.path.abspath(table_path)),
@@ -1611,6 +1628,7 @@ def phase_profile(eng, frames, warm: int, card: str, table_path,
         with open(table_path, "w") as fh:
             fh.write(f"card: {card}; frames {warm}..{warm + n - 1} of the "
                      f"production {label} config\n")
+            ka = prof.key_averages()    # aggregated: tens of seconds
             fh.write(ka.table(sort_by="self_device_time_total",
                               row_limit=60))
             fh.write("\n")
@@ -2420,6 +2438,75 @@ def phase_accuracy_harness(card: str):
     return row["launches"]
 
 
+def finite_numbers(tree) -> bool:
+    """Every number in a tool's returned tree is finite (None counts: a
+    share with no positive delta; names are skipped)."""
+    if isinstance(tree, str):
+        return True
+    if isinstance(tree, dict):
+        return all(finite_numbers(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(finite_numbers(v) for v in tree)
+    return tree is None or bool(np.isfinite(tree))
+
+
+def phase_timing_tools(card: str):
+    """The four timing tools on the card through their ``main``, at the
+    bench shapes: profile_ba at ``--iters 3`` (five solves of 2 x 30 LM
+    iterations), profile_stages at ``--iters 3``, profile_engine over 26
+    frames fed from the host and again resident, profile_ablate at
+    ``--iters 3``.
+    Checked: every returned number finite; profile_stages' build_pyramid,
+    advance_tracks and new_map_points stages launched build_pyramid,
+    klt_track and ncc_blocks at least once a call; the stage, ablation and
+    engine tools each launched build_pyramid, klt_track and ncc_blocks
+    (none fell back to a plain version). Logs every returned number.
+    Returns the phase's kernel launches."""
+    import contextlib
+    import io
+    from coslam_torch.examples import (profile_ablate, profile_ba,
+                                       profile_engine, profile_stages)
+    counters = kernel_counters()
+    # profile_ablate last: the first launches after a torch.profiler run
+    # are slower (on the H100, profile_ba's normal terms took 51 ms a call
+    # right after profile_ablate, 4.8 ms on its next run), so no tool's
+    # window follows one
+    runs = {"profile_ba": (profile_ba, ["--iters", "3"]),
+            "profile_stages": (profile_stages, ["--iters", "3"]),
+            "profile_engine": (profile_engine, ["--frames", "26"]),
+            "profile_engine --resident": (
+                profile_engine, ["--frames", "26", "--resident"]),
+            "profile_ablate": (profile_ablate, ["--iters", "3"])}
+    need = ("build_pyramid", "klt_track", "ncc_blocks")
+    results, checks = {}, {}
+    for name, (tool, argv) in runs.items():
+        before = {k: fn.launches for k, fn in counters.items()}
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = tool.main(argv)
+        secs = time.perf_counter() - t0
+        launched = {k: fn.launches - before[k] for k, fn in counters.items()}
+        results[name] = res
+        for line in out.getvalue().splitlines():
+            log(f"timing_tools: {name}: {line}")
+        log(f"timing_tools: {name} returned {json.dumps(res)}")
+        log(f"timing_tools: {name}: {secs:.2f} s, kernel launches "
+            f"{launched}; card {card}")
+        checks[f"{name}: every number finite"] = finite_numbers(res)
+        if name != "profile_ba":        # the BA runs no hand-written kernel
+            checks[f"{name}: no plain fallback"] = all(
+                launched[k] > 0 for k in need)
+    per_call = results["profile_stages"]["launches"]
+    for stage, kernel in (("build_pyramid", "build_pyramid"),
+                          ("advance_tracks (KLT)", "klt_track"),
+                          ("new_map_points", "ncc_blocks")):
+        checks[f"profile_stages: {stage} launched {kernel}"] = \
+            per_call[stage][kernel] >= 1
+    check("timing_tools", checks)
+    return {k: fn.launches for k, fn in counters.items()}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile-table", default=None,
@@ -2505,9 +2592,14 @@ def run_phases(smi: str, cpu_runs: dict, args, lap):
     lap("parallel")
     harness = phase_accuracy_harness(smi)
     lap("accuracy_harness")
+    for fn in kernel_counters().values():
+        fn.launches = 0
+    tools = phase_timing_tools(smi)
+    lap("timing_tools")
     by_path = {"mono": mono, "modes": modes, "threecam_dyn": multi,
                "splitmerge": split, "mono_loop": loop, "distorted_io": dist,
-               "fivecam_mesh": fivecam, "accuracy_harness": harness}
+               "fivecam_mesh": fivecam, "accuracy_harness": harness,
+               "timing_tools": tools}
     return per_shape, by_path
 
 

@@ -179,6 +179,11 @@ def init_map_multicam(cfg: SlamConfig, K: torch.Tensor, kc: torch.Tensor,
     blk_ok = torch.stack([o for _, o in per_cam])
     matches, counts = _pairwise_matches(cfg, K, kc, pos, at, valid,
                                         blocks, blk_ok)
+    # no pair matches: a failed init, retried on the next frame (the JAX
+    # package's path starts at camera 0 twice here and raises KeyError;
+    # ROADMAP.md, C4)
+    if counts.max() == 0:
+        return fail
     order = _camera_order(counts)
     obs = _chain_tracks(order, matches, N)
     if obs.shape[0] < 30:

@@ -1,7 +1,8 @@
 """The port's multi-device layer (``coslam_torch/parallel``, the fused
 step's ``mesh=``) on a CPU mesh, against the JAX package's on its eight
 virtual CPU devices (tests/conftest.py) and against the port's own
-single-device code.
+single-device code. The chunked mesh step's tests are in
+tests/test_torch_parallel_chunk.py.
 
 The port's mesh is ``["cpu"] * n``: one controller, the shards' work run
 one after the other on the CPU. Each shard's arithmetic is the
@@ -22,53 +23,7 @@ from jax.sharding import Mesh
 
 import torch_parity as tp
 
-H, W, FEATS = 96, 128, 128
-
-
-def _images(C, seed=0):
-    """Blurred uniform noise [C, H, W] (the dry run's frames, blurred by
-    the JAX package), K and kc for C identical cameras."""
-    from coslam_tpu.ops.image import gaussian_blur
-    rng = np.random.default_rng(seed)
-    imgs = np.asarray(gaussian_blur(jnp.asarray(
-        rng.uniform(0, 255, (C, H, W)), jnp.float32)))
-    K = np.broadcast_to(np.array(
-        [[120.0, 0, W / 2], [0, 120.0, H / 2], [0, 0, 1]], np.float32),
-        (C, 3, 3)).copy()
-    return imgs, K, np.zeros((C, 5), np.float32)
-
-
-def _jax_seeded(C, imgs, K, kc):
-    """The JAX package's seeded state (its dry run's track table: the
-    first frame's corners) and first-frame pyramid, as numpy trees."""
-    from coslam_tpu.ops import build_pyramid, detect_corners
-    from coslam_tpu.parallel.scaling import _mesh_cfg
-    from coslam_tpu.slam import steps
-    from coslam_tpu.slam.state import init_state
-    cfg = _mesh_cfg(C, H, W, FEATS)
-    state = init_state(cfg)
-    pyr0 = build_pyramid(jnp.asarray(imgs), cfg.klt.n_levels)
-    det = detect_corners(pyr0.imgs[0], pyr0.dxs[0], pyr0.dys[0], cfg.klt,
-                         FEATS)
-    tracks = steps.seed_tracks(state.tracks, det.pos, det.valid,
-                               jnp.full(det.valid.shape, -1, jnp.int32),
-                               jnp.asarray(K), jnp.asarray(kc), state.frame)
-    return cfg, tp.to_numpy(state._replace(tracks=tracks)), tp.to_numpy(pyr0)
-
-
-def _port_mesh_start(mesh, seeded, pyr0, K, kc):
-    from coslam_torch.slam.fused import shard_pyramid
-    from coslam_torch.slam.state import state_from_numpy
-    tK, tkc = tp.t(K), tp.t(kc)
-    return (state_from_numpy(seeded, mesh=mesh),
-            shard_pyramid(mesh, tp.pyramid_to_torch(pyr0), 0, tK, tkc),
-            tK, tkc)
-
-
-def _port_single_start(seeded, pyr0, K, kc):
-    from coslam_torch.slam.state import state_from_numpy
-    return (state_from_numpy(seeded, "cpu"), tp.pyramid_to_torch(pyr0),
-            tp.t(K), tp.t(kc))
+H, W, FEATS = tp.MESH_H, tp.MESH_W, tp.MESH_FEATS
 
 
 @pytest.fixture(scope="module")
@@ -82,9 +37,9 @@ def step8():
     from coslam_tpu.parallel.mesh import shard_state
     from coslam_tpu.slam.fused import frame_step as jstep
     C = 8
-    imgs, K, kc = _images(C)
+    imgs, K, kc = tp.mesh_images(C)
     cur = np.roll(imgs, 1, axis=-1)
-    jcfg, seeded, pyr0 = _jax_seeded(C, imgs, K, kc)
+    jcfg, seeded, pyr0 = tp.jax_seeded(C, imgs, K, kc)
     from coslam_tpu.slam.state import SlamState
     from coslam_tpu.ops.pyramid import Pyramid as JPyr
     jmesh = Mesh(np.array(jax.devices()[:C]), ("cam",))
@@ -94,12 +49,12 @@ def step8():
                        jnp.asarray(kc), jcfg, mesh=jmesh)
     tcfg = mesh_cfg(C, H, W, FEATS)
     mesh = make_cam_mesh(devices=["cpu"] * C)
-    st, pyr, tK, tkc = _port_mesh_start(mesh, seeded, pyr0, K, kc)
+    st, pyr, tK, tkc = tp.port_mesh_start(mesh, seeded, pyr0, K, kc)
     mesh.reset_census()
     ts, tpyr, tfs = frame_step(st, pyr, shard_frames(mesh, tp.t(cur)), tK,
                                tkc, tcfg, mesh=mesh)
     census = dict(mesh.census)
-    s1, p1, tK1, tkc1 = _port_single_start(seeded, pyr0, K, kc)
+    s1, p1, tK1, tkc1 = tp.port_single_start(seeded, pyr0, K, kc)
     ss, spyr, sfs = frame_step(s1, p1, tp.t(cur), tK1, tkc1, tcfg)
     return dict(jax=(tp.to_numpy(js), tp.to_numpy(jfs)), mesh=(ts, tpyr, tfs),
                 single=(ss, spyr, sfs), census=census, C=C)
@@ -123,12 +78,6 @@ def _assert_step_against_jax(jstate, jfs, tstate, tfs):
     assert int(tstate.frame) == int(jstate.frame)
 
 
-def _assert_states_equal(a, b):
-    from coslam_torch.slam.state import state_to_numpy
-    for x, y in zip(tp.leaves(state_to_numpy(a)), tp.leaves(state_to_numpy(b))):
-        np.testing.assert_array_equal(x, y)
-
-
 def test_mesh_step_against_jax_mesh_step(step8):
     (jstate, jfs), (ts, _, tfs) = step8["jax"], step8["mesh"]
     assert tp.n(tfs.n_tracked).min() > 10
@@ -140,7 +89,7 @@ def test_mesh_step_equals_single_device_step(step8):
     inputs: every state leaf, the stats and the carried pyramid equal."""
     from coslam_torch.slam.fused import pack_stats
     (ts, tpyr, tfs), (ss, spyr, sfs) = step8["mesh"], step8["single"]
-    _assert_states_equal(ts, ss)
+    tp.assert_states_equal(ts, ss)
     np.testing.assert_array_equal(tp.n(pack_stats(tfs)), tp.n(pack_stats(sfs)))
     full = tpyr.gather_levels()
     for a, b in zip(tp.leaves(tuple(full)), tp.leaves(tuple(spyr))):
@@ -162,66 +111,6 @@ def test_step_transfer_census(step8):
     assert step8["census"] == want
     assert sum(want.values()) == C * (2 * len(names) + 2)
     assert audit_step_transfers(8, devices=["cpu"] * 8) == want
-
-
-@pytest.fixture(scope="module")
-def chunk3():
-    """frame_steps_chunk over 3 frames at C = 4 on a 2-device mesh (two
-    cameras a shard): JAX's, the port's mesh and single-device runs."""
-    from coslam_torch.parallel.mesh import make_cam_mesh
-    from coslam_torch.parallel.scaling import mesh_cfg
-    from coslam_torch.slam.fused import frame_steps_chunk, shard_frames
-    from coslam_tpu.parallel.mesh import shard_state
-    from coslam_tpu.slam.fused import frame_steps_chunk as jchunk
-    from coslam_tpu.slam.state import SlamState
-    from coslam_tpu.ops.pyramid import Pyramid as JPyr
-    C, n_dev = 4, 2
-    imgs, K, kc = _images(C, seed=1)
-    seq = np.stack([np.roll(imgs, i, axis=-1) for i in range(1, 4)])
-    jcfg, seeded, pyr0 = _jax_seeded(C, imgs, K, kc)
-    jmesh = Mesh(np.array(jax.devices()[:n_dev]), ("cam",))
-    js = shard_state(jax.tree.map(jnp.asarray, SlamState(*seeded)), jmesh)
-    js, _, jflat = jchunk(js, jax.tree.map(jnp.asarray, JPyr(*pyr0)),
-                          jnp.asarray(seq), jnp.asarray(K), jnp.asarray(kc),
-                          jcfg, mesh=jmesh)
-    tcfg = mesh_cfg(C, H, W, FEATS)
-    mesh = make_cam_mesh(devices=["cpu"] * n_dev)
-    st, pyr, tK, tkc = _port_mesh_start(mesh, seeded, pyr0, K, kc)
-    per = [shard_frames(mesh, tp.t(f)) for f in seq]
-    shards = [torch.stack([p[k] for p in per]) for k in range(n_dev)]
-    ts, _, tflat = frame_steps_chunk(st, pyr, shards, tK, tkc, tcfg,
-                                     mesh=mesh)
-    s1, p1, tK1, tkc1 = _port_single_start(seeded, pyr0, K, kc)
-    ss, _, sflat = frame_steps_chunk(s1, p1, tp.t(seq), tK1, tkc1, tcfg)
-    return dict(jax=(tp.to_numpy(js), np.asarray(jflat)), mesh=(ts, tflat),
-                single=(ss, sflat), C=C, D=seeded.kfs.dyn_xyz.shape[1])
-
-
-def test_mesh_chunk_against_jax_mesh_chunk(chunk3):
-    """Three chained steps: the bands of tests/test_torch_fused_scan.py
-    (track tables within 1e-2 px and 8 flips, counts within 3, poses to
-    2e-3 / 5e-3), the host-scan block equal."""
-    from coslam_torch.slam.fused import unpack_stats
-    (js, jflat), (ts, tflat) = chunk3["jax"], chunk3["mesh"]
-    C, D = chunk3["C"], chunk3["D"]
-    tflat = tp.n(tflat)
-    assert tflat.shape == jflat.shape
-    assert int(ts.frame) == int(js.frame) == 3
-    tp.assert_tracks_close(js.tracks, ts.tracks, max_flips=8, pos_tol=1e-2)
-    scan_len = C * (3 * C + 2)
-    rows, jrows = (v[:-scan_len].reshape(3, -1) for v in (tflat, jflat))
-    for i in range(3):
-        tu, ju = unpack_stats(rows[i], C, D), unpack_stats(jrows[i], C, D)
-        assert np.abs(tu.n_tracked - ju.n_tracked).max() <= 3
-        np.testing.assert_allclose(tu.R, ju.R, atol=2e-3)
-        np.testing.assert_allclose(tu.t, ju.t, atol=5e-3)
-    np.testing.assert_array_equal(tflat[-scan_len:], jflat[-scan_len:])
-
-
-def test_mesh_chunk_equals_single_device_chunk(chunk3):
-    (ts, tflat), (ss, sflat) = chunk3["mesh"], chunk3["single"]
-    _assert_states_equal(ts, ss)
-    np.testing.assert_array_equal(tp.n(tflat), tp.n(sflat))
 
 
 # ------------------------------------------------------ distributed BA ----

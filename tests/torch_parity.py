@@ -516,6 +516,115 @@ def assert_merges_agree(a, b, frames: int = 2, matches: float = 0.2):
             <= matches * mb["n_matches"], (ma, mb)
 
 
+# ---------------------------------------------------------------------
+# the mesh engine (tests/test_torch_mesh_engine*.py)
+# ---------------------------------------------------------------------
+
+def cpu_mesh(C: int):
+    """A camera mesh of C CPU devices: one camera a shard."""
+    from coslam_torch.parallel.mesh import make_cam_mesh
+    return make_cam_mesh(devices=["cpu"] * C)
+
+
+def port_test_engine(C: int, mesh=None, **engine_kw):
+    """The port's engine at small_test_config(C, H, W) on the CPU, on
+    ``mesh`` when one is given."""
+    from coslam_torch.config import small_test_config
+    from coslam_torch.slam.pipeline import CoSlamEngine
+    return CoSlamEngine(small_test_config(C, H, W), *kmats(C), device="cpu",
+                        mesh=mesh, **engine_kw)
+
+
+def run_frames(eng, frames) -> list:
+    """Feed ``frames``; each camera's uncorrected trajectory."""
+    for f in frames:
+        eng.process_frame(f)
+    return [eng.trajectory(c, correct=False)
+            for c in range(eng.cfg.num_cameras)]
+
+
+def assert_same_run(a, b, ta, tb):
+    """Two engines' runs (engines ``a``, ``b``; trajectories ``ta``,
+    ``tb``) agree: bootstrapped, the same keyframes and groups, each
+    camera's centres within 0.05 and its poses within 1e-5."""
+    assert a.bootstrapped and b.bootstrapped
+    assert a.kf_frames == b.kf_frames, (a.kf_frames, b.kf_frames)
+    assert a.group_hist == b.group_hist
+
+    def centres(traj):
+        R, t = traj
+        return -np.einsum("fji,fj->fi", R, t)
+    for c, (x, y) in enumerate(zip(ta, tb)):
+        gap = float(np.abs(centres(x) - centres(y)).max())
+        assert gap < 0.05, (c, gap)
+        for u, v in zip(x, y):
+            np.testing.assert_allclose(u, v, atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------
+# the mesh step's inputs (tests/test_torch_parallel.py, _parallel_chunk.py)
+# ---------------------------------------------------------------------
+# Both packages start one fused step (or one chunk) from the JAX package's
+# seeded track table on blurred noise at 96x128 with 128 features (its dry
+# run's frames): the port on a mesh of CPU devices and on one device.
+
+MESH_H, MESH_W, MESH_FEATS = 96, 128, 128
+
+
+def mesh_images(C, seed=0):
+    """Blurred uniform noise [C, MESH_H, MESH_W] (the dry run's frames,
+    blurred by the JAX package), K and kc for C identical cameras."""
+    import jax.numpy as jnp
+    from coslam_tpu.ops.image import gaussian_blur
+    rng = np.random.default_rng(seed)
+    imgs = np.asarray(gaussian_blur(jnp.asarray(
+        rng.uniform(0, 255, (C, MESH_H, MESH_W)), jnp.float32)))
+    K = np.broadcast_to(np.array(
+        [[120.0, 0, MESH_W / 2], [0, 120.0, MESH_H / 2], [0, 0, 1]],
+        np.float32), (C, 3, 3)).copy()
+    return imgs, K, np.zeros((C, 5), np.float32)
+
+
+def jax_seeded(C, imgs, K, kc):
+    """The JAX package's seeded state (its dry run's track table: the
+    first frame's corners) and first-frame pyramid, as numpy trees."""
+    import jax.numpy as jnp
+    from coslam_tpu.ops import build_pyramid, detect_corners
+    from coslam_tpu.parallel.scaling import _mesh_cfg
+    from coslam_tpu.slam import steps
+    from coslam_tpu.slam.state import init_state
+    cfg = _mesh_cfg(C, MESH_H, MESH_W, MESH_FEATS)
+    state = init_state(cfg)
+    pyr0 = build_pyramid(jnp.asarray(imgs), cfg.klt.n_levels)
+    det = detect_corners(pyr0.imgs[0], pyr0.dxs[0], pyr0.dys[0], cfg.klt,
+                         MESH_FEATS)
+    tracks = steps.seed_tracks(state.tracks, det.pos, det.valid,
+                               jnp.full(det.valid.shape, -1, jnp.int32),
+                               jnp.asarray(K), jnp.asarray(kc), state.frame)
+    return cfg, to_numpy(state._replace(tracks=tracks)), to_numpy(pyr0)
+
+
+def port_mesh_start(mesh, seeded, pyr0, K, kc):
+    from coslam_torch.slam.fused import shard_pyramid
+    from coslam_torch.slam.state import state_from_numpy
+    tK, tkc = t(K), t(kc)
+    return (state_from_numpy(seeded, mesh=mesh),
+            shard_pyramid(mesh, pyramid_to_torch(pyr0), 0, tK, tkc),
+            tK, tkc)
+
+
+def port_single_start(seeded, pyr0, K, kc):
+    from coslam_torch.slam.state import state_from_numpy
+    return (state_from_numpy(seeded, "cpu"), pyramid_to_torch(pyr0),
+            t(K), t(kc))
+
+
+def assert_states_equal(a, b):
+    from coslam_torch.slam.state import state_to_numpy
+    for x, y in zip(leaves(state_to_numpy(a)), leaves(state_to_numpy(b))):
+        np.testing.assert_array_equal(x, y)
+
+
 if __name__ == "__main__":
     # the reference's own spread per mode and scene (see the note above);
     # run from the repository's root: PYTHONPATH=. python tests/torch_parity.py
