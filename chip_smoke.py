@@ -18,23 +18,29 @@ points, 64 keyframes, BA window 5) in the synthetic room:
 - the same 100 frames in the engine modes (chunk=4, overlap, async BA on
   a side stream): every frame posed and logged, ATE, keyframes, BAs
   applied through their events, synchronizing calls;
-- threecam_dyn, 100 frames (three cameras on a rig, a moving textured
+- threecam_dyn, 70 frames (three cameras on a rig, a moving textured
   quad): the wide-baseline bootstrap at frame 0, keyframes, BA, every
   camera's ATE, dynamic points, inter-camera mapping and the groups;
-- splitmerge, 400 frames (two cameras; camera 1 yaws away and back): the
-  groups split, the merge bridge rejoins them, every camera's ATE;
-- mono_loop, 400 frames (one camera maps a wall, turns away and comes
-  back): a loop closure anchored on the dormant map, the ATE;
-- distorted_io, 100 frames of the reference's distorted configuration
+- splitmerge, 400 frames (two cameras; camera 1 yaws away and back):
+  the groups split, the merge bridge rejoins them, a loop closure with
+  both cameras in one group, every camera's ATE;
+- mono_loop, the first 370 of 400 frames (one camera maps a wall, turns
+  away and comes back): a loop closure anchored on the dormant map, the
+  ATE;
+- the main path's 100 frames again at window and patch radius 9
+  (general_radius: klt_track and ncc_blocks on their general kernels
+  only, the main path's checks), and on the non-fused path (non_fused:
+  every frame logged, keyframes, BA, the ATE);
+- distorted_io, 80 frames of the reference's distorted configuration
   (three cameras on a rig, k1 = -0.25, k2 = 0.08) read from files: CSRW
   videos, calibration files and an input.txt through the CLI
   (``coslam_torch.cli``, the native loader, the export), every camera's
-  ATE from the exported poses; a checkpoint at frame 60 resumed against
-  the uninterrupted run to frame 80; the loader alone, loader-fed
+  ATE from the exported poses; a checkpoint at frame 40 resumed against
+  the uninterrupted run to frame 60; the loader alone, loader-fed
   against 20 resident frames, the feature log's synchronizing calls,
   checkpoint save and load; TV-L1 flow on a pair of its frames, card
   against CPU;
-- fivecam_mesh, 60 of the reference's 150 frames (five cameras on a
+- fivecam_mesh, 48 of the reference's 150 frames (five cameras on a
   rig, BASELINE config 5): the chunked engine (chunk=6) on a camera mesh,
   one camera a shard over the visible cards round robin (["cuda:0"] * 5
   on one card), the frames copied from the host to their shards: the
@@ -43,9 +49,10 @@ points, 64 keyframes, BA window 5) in the synthetic room:
   shard's 11 track rows there and back, its NCC block pair back), no
   synchronizing call inside the step;
 - accuracy_harness: the port's accuracy harness
-  (``coslam_torch.examples.accuracy_bench``) in-process on its full
-  300-frame ``occlusion`` config (two cameras, camera 1's lens covered
-  over frames 75-135, seed 7, chunk=6, the frames staged as float16):
+  (``coslam_torch.examples.accuracy_bench``) in-process on its
+  ``occlusion`` configuration, 300 frames (two cameras, camera 1's lens
+  covered over frames 75-135, seed 7, chunk=6, the frames staged as
+  float16):
   every row key present and finite, camera 1 split off during the
   blackout, a realigning merge after uncover, one group at the end, the
   ATE from 20 frames after uncover; then ``run_synthetic`` on the card
@@ -67,7 +74,8 @@ the package's explicit torch.cuda.synchronize calls.
 
 The multi-device layer also gets: the two-camera engine on a mesh
 against the same engine on one card (20 frames at 150x200); run_dryrun(5)
-at 480x640; the distributed table BA over 5 point shards against the
+and run_dryrun(8) at 480x640 (one card: ["cuda:0"] * 5 and * 8); the
+distributed table BA over 5 point shards against the
 one-card solve on bench.py's BA problem, both timed as LM iterations/s;
 and async BA solved on another device (cuda:1, else the CPU) over the
 mono scene.
@@ -119,7 +127,11 @@ import torch  # noqa: E402
 
 H, W = 480, 640
 FRAMES = 100
-LONG_FRAMES = 400                # splitmerge and mono_loop
+LONG_FRAMES = 400                # the splitmerge and mono_loop scenes
+# the frames of mono_loop's scene its path runs: the first, up to some
+# frames after the closure at frame 346
+LOOP_RUN = 370
+THREECAM_FRAMES = 70             # of threecam_dyn's 500 (ACCURACY.md)
 N_FEAT = 1024
 N_LOOP = 256                     # dormant points one closure searches
 KPROD = np.array([[500.0, 0, W / 2], [0, 500.0, H / 2], [0, 0, 1]],
@@ -195,6 +207,7 @@ def activities_per_call(fn, calls: int = 10):
     The device-side marks of the wrappers' record_function ranges are not
     activities and are left out."""
     from torch.profiler import ProfilerActivity, profile
+    from coslam_torch.ops import kernel_wrappers
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -204,7 +217,7 @@ def activities_per_call(fn, calls: int = 10):
         torch.cuda.synchronize()
     acts = [e.name for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.name not in kernel_counters()]
+            and e.name not in kernel_wrappers()]
     return len(acts) / calls, sorted({a[:48] for a in acts})
 
 
@@ -673,7 +686,64 @@ def phase_kernels():
     for k, rec in general.items():
         log(f"{k} general path {rec}")
     res["general_radius"] = general
+    check("each wrapper counts the kernel the card ran",
+          route_checks(mono[0].contiguous(), p0, p2))
     return res
+
+
+def route_checks(img, pyr0, pyr1) -> dict:
+    """Which kernel each wrapper with a general path launched, as the card
+    ran it (the kernel's name in a torch.profiler trace, read with
+    range_launches) against what the wrapper counted in
+    ``general_launches``: one call each of klt_track at window radius 5
+    and 9, ncc_blocks at radius 5 and 9, and ncc_search at (patch radius,
+    search radius) (5, 16), (5, 21) and (9, 24), on 64 features of
+    ``img`` [H, W] and its pyramids. Returns the checks."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from coslam_torch.config import KLTConfig
+    from coslam_torch.ops.klt import klt_track
+    from coslam_torch.ops.ncc import extract_ncc_blocks_batched, ncc_search
+    dev = img.device
+    gen = torch.Generator().manual_seed(1)
+    pos = (torch.rand((1, 64, 2), generator=gen)
+           * torch.tensor([W - 120.0, H - 120.0]) + 60.0).to(dev)
+    valid = torch.ones((1, 64), dtype=torch.bool, device=dev)
+    calls = {}                  # name: (wrapper, call, general kernel?)
+    for r in (5, 9):
+        cfg = KLTConfig(n_levels=len(pyr0.imgs), window_radius=r)
+        calls[f"klt_track r={r}"] = (
+            klt_track, lambda cfg=cfg: klt_track(pyr0, pyr1, pos, valid, cfg),
+            r > 7)
+        calls[f"ncc_blocks r={r}"] = (
+            extract_ncc_blocks_batched,
+            lambda r=r: extract_ncc_blocks_batched(img[None], pos, r), r > 7)
+    for pr, sr in ((5, 16), (5, 21), (9, 24)):
+        tmpl = torch.zeros((64, (2 * pr + 1) ** 2), device=dev)
+        calls[f"ncc_search r={pr} search={sr}"] = (
+            ncc_search, lambda pr=pr, sr=sr, tmpl=tmpl:
+            ncc_search(img, pos[0], tmpl, sr, pr), pr > 7 or sr > 20)
+    counted = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device=dev).add_(1)   # a trace's first activity
+        for name, (wrapper, call, _) in calls.items():
+            n0 = wrapper.general_launches
+            with record_function(name):
+                call()
+            counted[name] = wrapper.general_launches - n0
+        torch.cuda.synchronize()
+    ran = range_launches(prof, list(calls), 1)
+    checks = {}
+    for name, (_, _, general) in calls.items():
+        kernels = ran[name]["kernels"]
+        log(f"route {name}: counted {counted[name]} general launch(es); "
+            f"the card ran {kernels}")
+        on_general = any("general" in k for k in kernels)
+        checks[f"{name}: {'general' if general else 'tuned'} kernel, "
+               f"counted so"] = bool(kernels) and on_general == general \
+            and counted[name] == int(general)
+    return checks
 
 
 def ncc_search_agreement(img, gen):
@@ -701,20 +771,29 @@ def ncc_search_agreement(img, gen):
                          "scores within 1e-4": err <= 1e-4})
 
 
-def kernel_counters():
-    from coslam_torch.ops import kernel_wrappers
-    return kernel_wrappers()
-
-
-def launch_checks(launches: dict, search: bool) -> dict:
-    """What a path's kernel counts must show: build_pyramid, klt_track and
-    ncc_blocks launched, ncc_search too where the path closes a loop
-    (``search``), and the window kernel not at all (its NCC uses are
-    ncc_blocks and ncc_search now)."""
+def launch_checks(launches: dict, search: bool,
+                  general: bool = False) -> dict:
+    """What a path's kernel counts (launch_counts) must show: build_pyramid,
+    klt_track and ncc_blocks launched, ncc_search too where the path
+    closes a loop (``search``), and the window kernel not at all (its NCC
+    uses are ncc_blocks and ncc_search now). At the engine's radii no
+    launch of klt_track, ncc_blocks or ncc_search takes its general
+    kernel; with ``general`` (radii above the tuned paths') every launch
+    does."""
+    from coslam_torch.ops import GENERAL_PATHS
     need = ["build_pyramid", "klt_track", "ncc_blocks"] + \
         (["ncc_search"] if search else [])
-    return {**{f"{k} launched": launches[k] > 0 for k in need},
-            "extract_windows not launched": launches["extract_windows"] == 0}
+    checks = {**{f"{k} launched": launches[k] > 0 for k in need},
+              "extract_windows not launched":
+                  launches["extract_windows"] == 0}
+    for k in GENERAL_PATHS:
+        n = launches[f"{k}_general"]
+        if general:
+            checks[f"{k}: every launch on its general kernel"] = \
+                n == launches[k]
+        else:
+            checks[f"{k}: no launch on its general kernel"] = n == 0
+    return checks
 
 
 def time_attempts(eng, device):
@@ -766,12 +845,16 @@ class SyncCounter:
     also where ``frame_steps_scan`` calls it). ``explicit_syncs`` counts
     apart the calls of ``torch.cuda.synchronize()`` that the package makes
     (``util.to_host``, the stage clock), which the debug mode does not
-    report; this script's own (the wall clocks) are not counted."""
+    report; this script's own (the wall clocks) are not counted.
+    ``sites`` counts the synchronizing calls by the package's innermost
+    function on the stack (module:function:line)."""
 
     def __init__(self):
+        import collections
         self.total = 0
         self.in_step = 0
         self.explicit_syncs = 0
+        self.sites = collections.Counter()
 
     def _synchronize(self, device=None):
         caller = sys._getframe(1).f_globals.get("__name__", "")
@@ -784,7 +867,13 @@ class SyncCounter:
             return
         self.total += 1
         f = sys._getframe()
+        site = None
         while f is not None:
+            if site is None and f.f_globals.get(
+                    "__name__", "").startswith("coslam_torch"):
+                site = (f"{f.f_globals['__name__']}:{f.f_code.co_name}:"
+                        f"{f.f_lineno}")
+                self.sites[site] += 1
             if f.f_code is self._step:
                 self.in_step += 1
                 return
@@ -844,15 +933,14 @@ def run_engine(cfg, K, frames, device, snapshot_when=None,
     what was allocated when the run started in ``engine.held_mem``."""
     import collections
     import contextlib
+    from coslam_torch.ops import launch_counts, reset_launch_counts
     from coslam_torch.slam.pipeline import CoSlamEngine
     C = cfg.num_cameras
     eng = CoSlamEngine(cfg, K, np.zeros((C, 5), np.float32), device=device,
                        **engine_kw)
     time_attempts(eng, device)
     eng.snapshots = collections.deque(maxlen=3)
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_launch_counts()
     frame_ms = []
     eng.syncs = SyncCounter() if count_syncs else None
     held = reset_peak_memory() if device != "cpu" else None
@@ -865,7 +953,7 @@ def run_engine(cfg, K, frames, device, snapshot_when=None,
             if device == "cuda" and (sync_each or f == len(frames) - 1):
                 torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = launch_counts()
     eng.peak_mem = peak_memory_mib() if device != "cpu" else None
     eng.held_mem = held
     return eng, np.asarray(frame_ms), launches
@@ -890,26 +978,22 @@ def check(name: str, checks: dict):
         raise AssertionError(f"checks failed: {bad}")
 
 
-def phase_main_path(card: str):
-    """The production mono configuration, end to end on the card."""
+def mono_path(label: str, cfg, frames, card: str, **run_kw):
+    """The main path's mono scene (``frames``: the 100 frames
+    phase_main_path renders) at ``cfg`` on the card, each frame's wall
+    ending in a sync and the synchronizing calls counted (``run_kw``:
+    run_engine's other keyword arguments, the engine's modes among them).
+    Logs the run's records under ``label``: bootstrap, keyframes, ATE,
+    tracked-frame wall median and p90, synchronizing calls, launches,
+    peak memory. Returns (engine, launches, {"median": ..., "p90": ...}
+    tracked-frame wall ms, checks: the main path's without its launch
+    checks)."""
     from coslam_torch.io.ate import ate_rmse, camera_centers
-    from coslam_torch.io.synthetic import (make_room, orbit_trajectory,
-                                           render_sequence)
-    cfg = production_cfg(1)
-    K = KPROD[None]
-    planes = make_room(np.random.default_rng(0), size=10.0)
+    from coslam_torch.io.synthetic import orbit_trajectory
     Rs_gt, ts_gt = orbit_trajectory(FRAMES, forward=0.04)
-    t0 = time.perf_counter()
-    frames = render_sequence(planes, KPROD, Rs_gt, ts_gt, H, W,
-                             device="cuda")[:, None]
-    torch.cuda.synchronize()
-    log(f"rendered {FRAMES} frames {tuple(frames.shape)} in "
-        f"{time.perf_counter() - t0:.2f} s")
     t_run = time.perf_counter()
-    # a copy before frame PROFILE_WARM[0] for the profile phase
-    eng, frame_ms, launches = run_engine(
-        cfg, K, frames, "cuda", count_syncs=True,
-        snapshot_when=lambda e: e.frame == PROFILE_WARM[0])
+    eng, frame_ms, launches = run_engine(cfg, KPROD[None], frames, "cuda",
+                                         count_syncs=True, **run_kw)
     Rs, ts = eng.trajectory(0, correct=True)
     run_s = time.perf_counter() - t_run
     ids, xyz, cov = eng.map_points()
@@ -917,24 +1001,24 @@ def phase_main_path(card: str):
     path = float(np.linalg.norm(np.diff(c_gt, axis=0), axis=-1).sum())
     ate = ate_rmse(Rs, ts, Rs_gt, ts_gt)
     med, trk, p90 = frame_times(eng, frame_ms)
-    log(f"main path: bootstrapped={eng.bootstrapped} keyframes="
+    log(f"{label}: bootstrapped={eng.bootstrapped} keyframes="
         f"{eng.kf_frames} ba_runs={eng.ba_runs} map_points={len(ids)}")
-    log(f"main path: ATE {ate:.6f} over a {path:.4f} path "
+    log(f"{label}: ATE {ate:.6f} over a {path:.4f} path "
         f"({100 * ate / path:.4f}%), {len(eng.kf_frames)} keyframes")
-    log(f"main path: per-frame ms median {med:.3f} (all {FRAMES}), "
+    log(f"{label}: per-frame ms median {med:.3f} (all {FRAMES}), "
         f"tracked-frame median {trk:.3f}, p90 {p90:.3f}, total "
         f"{run_s:.2f} s; card {card}")
-    log(f"main path: kernel launches {launches}")
+    log(f"{label}: kernel launches {launches}")
     n_trk = sum("med_err" in s for s in eng.stats_log)
-    log(f"main path: {eng.syncs.total} synchronizing calls over {n_trk} "
+    log(f"{label}: {eng.syncs.total} synchronizing calls over {n_trk} "
         f"tracked frames ({eng.syncs.total / n_trk:.3f} a tracked frame), "
         f"{eng.syncs.in_step} inside frame_step; explicit "
         f"torch.cuda.synchronize {eng.syncs.explicit_syncs} "
-        f"({eng.syncs.explicit_syncs / n_trk:.3f} a tracked frame); card "
-        f"{card}")
-    log(f"main path: peak device memory {eng.peak_mem} MiB (held at its "
+        f"({eng.syncs.explicit_syncs / n_trk:.3f} a tracked frame); by "
+        f"site {dict(eng.syncs.sites.most_common())}; card {card}")
+    log(f"{label}: peak device memory {eng.peak_mem} MiB (held at its "
         f"start {eng.held_mem}); card {card}")
-    check("main path", {
+    checks = {
         "frame_step never waits on the host": eng.syncs.in_step == 0,
         "<= 2 synchronizing calls a tracked frame":
             eng.syncs.total <= 2 * n_trk,
@@ -947,9 +1031,115 @@ def phase_main_path(card: str):
         "trajectory shape": Rs.shape == (FRAMES, 3, 3)
         and ts.shape == (FRAMES, 3),
         "ATE < 2% of path": ate < 0.02 * path,
-        **launch_checks(launches, search=False),
-    })
-    return launches, (eng.snapshots[0][1], frames), len(eng.kf_frames)
+    }
+    return eng, launches, dict(median=trk, p90=p90), checks
+
+
+def phase_main_path(card: str):
+    """The production mono configuration, end to end on the card. Returns
+    (launches, (a copy of the engine before frame PROFILE_WARM[0], the
+    frames), keyframes, the tracked-frame wall median and p90)."""
+    from coslam_torch.io.synthetic import (make_room, orbit_trajectory,
+                                           render_sequence)
+    planes = make_room(np.random.default_rng(0), size=10.0)
+    Rs_gt, ts_gt = orbit_trajectory(FRAMES, forward=0.04)
+    t0 = time.perf_counter()
+    frames = render_sequence(planes, KPROD, Rs_gt, ts_gt, H, W,
+                             device="cuda")[:, None]
+    torch.cuda.synchronize()
+    log(f"rendered {FRAMES} frames {tuple(frames.shape)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    # a copy before frame PROFILE_WARM[0] for the profile phase
+    eng, launches, wall, checks = mono_path(
+        "main path", production_cfg(1), frames, card,
+        snapshot_when=lambda e: e.frame == PROFILE_WARM[0])
+    check("main path", {**checks, **launch_checks(launches, search=False)})
+    return launches, (eng.snapshots[0][1], frames), len(eng.kf_frames), wall
+
+
+GENERAL_RADIUS = 9               # KLT window and NCC patch radius, > 7
+
+
+def general_radius_cfg(C: int):
+    """production_cfg(C) with the KLT window radius and the NCC patch
+    radius at GENERAL_RADIUS, above the tuned kernels' 7."""
+    import dataclasses
+    cfg = production_cfg(C)
+    return cfg.replace(
+        klt=dataclasses.replace(cfg.klt, window_radius=GENERAL_RADIUS),
+        p=dataclasses.replace(cfg.p, ncc_patch_radius=GENERAL_RADIUS))
+
+
+def phase_general_radius(card: str, frames, fused_wall: dict):
+    """The main path's scene at general_radius_cfg(1): window and patch
+    radius 9, so klt_track and ncc_blocks take their general kernels (the
+    map table's NCC blocks grow from 121 to 361 floats). Checked: the main
+    path's checks, its bound on the synchronizing calls taken apart: a
+    keyframe's pose fetches (one in ``_keyframe_ready``, one in
+    ``_prefetch_poses``) at most 2 a keyframe, the other calls at most 2 a
+    tracked frame (the run may hold more keyframes than the main path's,
+    which sum to its 2.000 a tracked frame; a new sync on every frame
+    still fails); klt_track's general kernel launched on every frame
+    after the first, ncc_blocks' more than 0 times, and neither tuned
+    kernel at all. Logs the wall beside the main path's (``fused_wall``)
+    and the map table's block bytes. Returns the launches."""
+    cfg = general_radius_cfg(1)
+    eng, launches, wall, checks = mono_path("general_radius", cfg, frames,
+                                            card)
+    n_trk = sum("med_err" in s for s in eng.stats_log)
+    kf_syncs = sum(n for site, n in eng.syncs.sites.items()
+                   if site.split(":")[1] in ("_keyframe_ready",
+                                             "_prefetch_poses"))
+    del checks["<= 2 synchronizing calls a tracked frame"]
+    checks.update({
+        "<= 2 keyframe pose fetches a keyframe":
+            kf_syncs <= 2 * len(eng.kf_frames),
+        "<= 2 other synchronizing calls a tracked frame":
+            eng.syncs.total - kf_syncs <= 2 * n_trk})
+    blocks = eng.state.mappts.ncc
+    log(f"general_radius: window radius {cfg.klt.window_radius}, patch "
+        f"radius {cfg.p.ncc_patch_radius}: map table blocks "
+        f"{tuple(blocks.shape)} ({blocks.numel() * blocks.element_size()} "
+        f"B); tracked-frame wall median {wall['median']:.3f} ms, p90 "
+        f"{wall['p90']:.3f} ms against the main path's (radius 5) "
+        f"{fused_wall['median']:.3f} and {fused_wall['p90']:.3f}; "
+        f"synchronizing calls: {kf_syncs} keyframe pose fetches over "
+        f"{len(eng.kf_frames)} keyframes, {eng.syncs.total - kf_syncs} "
+        f"others over {n_trk} tracked frames "
+        f"({(eng.syncs.total - kf_syncs) / n_trk:.3f} a tracked frame); "
+        f"card {card}")
+    check("general_radius", {
+        **checks, **launch_checks(launches, search=False, general=True),
+        "klt_track's general kernel on every frame after the first":
+            launches["klt_track_general"] == FRAMES - 1,
+        "ncc_blocks' general kernel launched":
+            launches["ncc_blocks_general"] > 0})
+    return launches
+
+
+def phase_non_fused(card: str, frames, fused_wall: dict):
+    """The main path's scene at the production configuration on the
+    non-fused path (use_fused=False: the stages called one by one, with
+    host syncs between them by design, so no bound on them): every frame
+    logged, at least 3 keyframes, BA ran, finite poses and map, ATE under
+    2% of the path, the path's kernels launched. Logs the synchronizing
+    calls a tracked frame and the wall beside the fused path's
+    (``fused_wall``). Returns the launches."""
+    eng, launches, wall, checks = mono_path(
+        "non_fused", production_cfg(1), frames, card, use_fused=False)
+    log(f"non_fused: tracked-frame wall median {wall['median']:.3f} ms, "
+        f"p90 {wall['p90']:.3f} ms against the fused path's "
+        f"{fused_wall['median']:.3f} and {fused_wall['p90']:.3f} "
+        f"({wall['median'] / fused_wall['median']:.3f}x the median); card "
+        f"{card}")
+    kept = ("bootstrapped", ">=3 keyframes", "BA ran", "finite poses",
+            "finite map", "trajectory shape", "ATE < 2% of path")
+    check("non_fused", {
+        **{k: checks[k] for k in kept},
+        "every frame logged once":
+            [s["frame"] for s in eng.stats_log] == list(range(FRAMES)),
+        **launch_checks(launches, search=False)})
+    return launches
 
 
 def phase_modes(card: str, frames, n_kf_default: int):
@@ -965,6 +1155,7 @@ def phase_modes(card: str, frames, n_kf_default: int):
     tracked step."""
     from coslam_torch.io.ate import ate_rmse, camera_centers
     from coslam_torch.io.synthetic import orbit_trajectory
+    from coslam_torch.ops import launch_counts
     cfg = production_cfg(1)
     Rs_gt, ts_gt = orbit_trajectory(FRAMES, forward=0.04)
     t_run = time.perf_counter()
@@ -974,7 +1165,7 @@ def phase_modes(card: str, frames, n_kf_default: int):
     eng._apply_pending_ba()
     # the trajectory drains the last chunk's frames: their launches count
     Rs, ts = eng.trajectory(0, correct=True)
-    launches = {k: fn.launches for k, fn in kernel_counters().items()}
+    launches = launch_counts()
     run_s = time.perf_counter() - t_run
     c_gt = camera_centers(Rs_gt, ts_gt)
     path = float(np.linalg.norm(np.diff(c_gt, axis=0), axis=-1).sum())
@@ -1027,8 +1218,9 @@ def phase_modes(card: str, frames, n_kf_default: int):
 def phase_syncs(card: str, n: int = 40):
     """Only the count of synchronizing calls: the default mono engine over
     the main path's first ``n`` frames at the production configuration.
-    It uses nothing newer than the engine's default mode, so it runs
-    against an older version of the package put beside this script."""
+    It uses nothing newer than the engine's default mode and the
+    wrappers' launch counts (``ops.launch_counts``), so it runs against an
+    older version of the package that has them, put beside this script."""
     from coslam_torch.io.synthetic import (make_room, orbit_trajectory,
                                            render_sequence)
     Rs_gt, ts_gt = orbit_trajectory(FRAMES, forward=0.04)
@@ -1097,12 +1289,12 @@ def loop_inputs():
     h, w, n_run = 150, 200, 181
     K = KPROD * np.float32(w / W)
     K[2, 2] = 1.0
-    frames, Rs_gt, ts_gt = mono_loop_scene(200, "cpu", h, w, K)
+    frames, Rs_gt, ts_gt = mono_loop_scene(200, "cpu", h, w, K, keep=n_run)
     cfg = small_test_config(1, h, w)
     cfg = cfg.replace(p=dataclasses.replace(
         cfg.p, loop_dormant_age=LOOP_AGE, loop_min_interval=20,
         loop_overlap_min=12, loop_min_inliers=7))
-    return cfg, K[None], frames[:n_run], Rs_gt[:n_run], ts_gt[:n_run]
+    return cfg, K[None], frames, Rs_gt, ts_gt
 
 
 # the CPU side of each card-against-CPU agreement: its inputs and modes
@@ -1160,11 +1352,12 @@ def phase_multicam_path(card: str):
     card: the wide-baseline bootstrap at frame 0, keyframes and BA,
     finite poses and map, every camera's ATE under 2% of camera 0's path,
     dynamic points on the last tracked frame, inter-camera points, and the
-    path's kernels launched. 100 frames: no group merge is attempted (the
-    reference's merge check needs a split, loop closure starts at 120)."""
+    path's kernels launched. THREECAM_FRAMES frames: no group merge is
+    attempted (the reference's merge check needs a split, loop closure
+    starts at 120)."""
     from coslam_torch.io.ate import ate_rmse, camera_centers
     t0 = time.perf_counter()
-    frames, Rs_gt, ts_gt = threecam_scene(FRAMES, "cuda")
+    frames, Rs_gt, ts_gt = threecam_scene(THREECAM_FRAMES, "cuda")
     torch.cuda.synchronize()
     log(f"threecam_dyn: rendered {tuple(frames.shape)} in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1199,7 +1392,8 @@ def phase_multicam_path(card: str):
         f"dynamic snapshots {len(eng.dyn_log)}; joint-pose frames {joint}")
     log(f"threecam_dyn: group_hist first {eng.group_hist[0]} last "
         f"{eng.group_hist[-1]}, transitions {trans}")
-    log(f"threecam_dyn: per-frame ms median {med:.3f} (all {FRAMES}), "
+    log(f"threecam_dyn: per-frame ms median {med:.3f} (all "
+        f"{THREECAM_FRAMES}), "
         f"tracked-frame median {trk:.3f}, p90 {p90:.3f}, total "
         f"{run_s:.2f} s; card {card}")
     log(f"threecam_dyn: kernel launches {launches}, per tracked frame "
@@ -1306,8 +1500,12 @@ def phase_loop_small_agreement(cpu_runs):
     from coslam_torch.io.ate import ate_rmse, camera_centers, umeyama
     cfg, K, frames, Rs_gt, ts_gt = loop_inputs()
     age = LOOP_AGE
+    t0 = time.perf_counter()
     gpu, _, launched = run_engine(cfg, K, frames, "cuda")
+    t1 = time.perf_counter()
     cpu = cpu_runs["loop"].result()
+    log(f"loop small input: card run {t1 - t0:.2f} s, then "
+        f"{time.perf_counter() - t1:.2f} s waiting for the CPU run")
     trajs = [e.trajectory(0, True, chain_scales=True) for e in (cpu, gpu)]
     c_cpu, c_gpu = (camera_centers(*tr) for tr in trajs)
     s, R, t = umeyama(c_gpu, c_cpu)
@@ -1339,8 +1537,8 @@ def splitmerge_scene(n: int, dev):
     0.02); camera 1 yaws to 1.2 rad over frames 0.2n-0.4n, holds until
     0.55n and returns by 0.75n. The generator is drawn in that script's
     order (one uniform, the room) and the frames are rounded to float16.
-    Returns (frames [F, 2, H, W] on ``dev``, Rs_gt [2, F, 3, 3],
-    ts_gt [2, F, 3])."""
+    Returns (frames [n, 2, H, W] on ``dev``, Rs_gt [2, n, 3, 3], ts_gt
+    [2, n, 3])."""
     from coslam_torch.geometry.se3 import so3_exp_np
     from coslam_torch.io.synthetic import (make_room, multi_cam_rig,
                                            orbit_trajectory, render_sequence)
@@ -1376,13 +1574,15 @@ def splitmerge_scene(n: int, dev):
     return frames.half().float(), Rs, ts
 
 
-def mono_loop_scene(n: int, dev, h: int = H, w: int = W, K=KPROD):
+def mono_loop_scene(n: int, dev, h: int = H, w: int = W, K=KPROD,
+                    keep: int | None = None):
     """The mono_loop scene of examples/accuracy_bench.py (config_mono_loop)
     from seed 0 where that script uses 7: a lateral sweep maps the back
     wall (to 0.15n), the camera yaws out to 1.2 rad (to 0.3n), dwells (to
     0.82n), yaws back (to 0.92n) and dwells on the revisit; the generator
     drawn in that script's order, the frames rounded to float16. Returns
-    (frames [F, 1, h, w] on ``dev``, Rs_gt [F, 3, 3], ts_gt [F, 3])."""
+    the first ``keep`` frames of the n (all by default): (frames
+    [F, 1, h, w] on ``dev``, Rs_gt [F, 3, 3], ts_gt [F, 3])."""
     from coslam_torch.geometry.se3 import so3_exp_np
     from coslam_torch.io.synthetic import make_room, render_sequence
     f_map, f_out, f_back, f_home = (int(n * a)
@@ -1398,6 +1598,7 @@ def mono_loop_scene(n: int, dev, h: int = H, w: int = W, K=KPROD):
         c = np.array([0.9 * np.sin(0.06 * f), 0.05 * np.sin(0.1 * f),
                       0.002 * f], np.float32)
         ts[f] = -Rs[f] @ c
+    Rs, ts = Rs[:keep], ts[:keep]
     rng = np.random.default_rng(0)
     rng.uniform()
     frames = render_sequence(make_room(rng, size=10.0), K, Rs, ts, h, w,
@@ -1420,13 +1621,15 @@ def attempt_summary(eng, label: str):
 
 
 def phase_splitmerge_path(card: str):
-    """splitmerge at the production configuration over 400 frames: the
-    groups split in frames 160-220, a merge is logged at frame >= 220, the
-    groups are rejoined at the last frame, every camera's ATE (chain
-    scales, as the accuracy harness computes it) under 2% of camera 0's
-    path, finite poses and map, the path's kernels launched. Returns (the
-    launches, a copy of the engine from two frames before the first
-    merge, the frames, that copy's next frame)."""
+    """splitmerge at the production configuration over its 400 frames: the
+    groups split in frames 160-220, a merge is logged at frame >= 220, a
+    loop closure after the first merge (both cameras in one group: the
+    script's only closure with more than one camera), the groups are
+    rejoined at the last frame, every camera's ATE (chain scales, as the
+    accuracy harness computes it) under 2% of camera 0's path, finite
+    poses and map, the path's kernels launched, ncc_search among them.
+    Returns (the launches, a copy of the engine from two frames before the
+    first merge, the frames, that copy's next frame)."""
     from coslam_torch.io.ate import ate_rmse, camera_centers
     from coslam_torch.slam.pipeline import GROUPING_INTERVAL
     n = LONG_FRAMES
@@ -1476,6 +1679,10 @@ def phase_splitmerge_path(card: str):
             any(g[0] != g[1] for g in gh[160:220]),
         "merge at frame >= 220":
             any(m["frame"] >= 220 for m in eng.merge_log),
+        "a loop closure after the first merge":
+            bool(eng.merge_log) and any(
+                lc["frame"] > eng.merge_log[0]["frame"]
+                for lc in eng.loop_log),
         "groups rejoined at the last frame": gh[-1][0] == gh[-1][1],
         "every camera's ATE < 2% of the camera-0 path":
             max(ates) < 0.02 * path,
@@ -1483,24 +1690,25 @@ def phase_splitmerge_path(card: str):
                             for R, t in trajs),
         "finite map": bool(len(ids) > 0 and np.isfinite(xyz).all()
                            and np.isfinite(cov).all()),
-        **launch_checks(launches, search=False),
+        **launch_checks(launches, search=True),
     })
     f0, snap = eng.snapshots[-1]    # two frames before the first merge
     return launches, snap, frames, f0
 
 
 def phase_mono_loop_path(card: str):
-    """mono_loop at the production configuration over 400 frames, default
-    closure thresholds: a closure anchored at least loop_dormant_age
+    """mono_loop at the production configuration over the first LOOP_RUN
+    frames of its 400, default closure thresholds: a closure anchored at
+    least loop_dormant_age
     frames before its frame, the ATE (chain scales) under 2% of the path,
     and every G = 43 search of a closure attempt one launch of
     ncc_search."""
     import coslam_torch.slam.loop as loop_mod
     from coslam_torch.ops.ncc import ncc_search
     from coslam_torch.io.ate import ate_rmse, camera_centers
-    n = LONG_FRAMES
+    n = LOOP_RUN
     t0 = time.perf_counter()
-    frames, Rs_gt, ts_gt = mono_loop_scene(n, "cuda")
+    frames, Rs_gt, ts_gt = mono_loop_scene(LONG_FRAMES, "cuda", keep=n)
     torch.cuda.synchronize()
     log(f"mono_loop: rendered {tuple(frames.shape)} in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1643,9 +1851,9 @@ def phase_profile(eng, frames, warm: int, card: str, table_path,
         log(f"profile {label}: inside {name}: {rec}")
 
 
-DIST_FRAMES = 100                # of the reference's 300 (ACCURACY.md:20)
-DIST_RESUME = 80                 # frames of the checkpoint run
-DIST_SAVE = 60                   # its checkpoint's frame
+DIST_FRAMES = 80                 # of the reference's 300 (ACCURACY.md:20)
+DIST_RESUME = 60                 # frames of the checkpoint run
+DIST_SAVE = 40                   # its checkpoint's frame
 DIST_RESIDENT = 20               # frames of the resident-frames run
 # the CPU's TV-L1 flow against the card's on the same pair: float32
 # elementwise rounding differs (the card contracts multiply-adds), and 180
@@ -1764,25 +1972,25 @@ def centre_rms(a, b) -> float:
 
 def phase_distorted_io(card: str):
     """The reference's distorted configuration at full width, read from
-    files (ROADMAP A16): 100 of its 300 frames rendered and warped on the
+    files (ROADMAP A16): 80 of its 300 frames rendered and warped on the
     card (a few views held against the CPU's render and warp), quantized
     to uint8 and written as CSRW videos, calibration files and an
     input.txt; then
-    - run A: ``coslam_torch.cli.main`` over the 100 frames (native loader,
+    - run A: ``coslam_torch.cli.main`` over the 80 frames (native loader,
       engine on the card, export); every camera's Sim(3)-aligned ATE from
       its exported campose file under 3% of camera 0's path (the
       reference's record over all 300 frames: 2.45%); mappts.txt and
       input_videos.txt parse; build_pyramid on every frame, klt_track on
       every tracked one, ncc_blocks launched;
     - run B: an engine fed by FrameLoader (native) with log_features saves
-      a checkpoint at frame 60 and runs to 80; a fresh engine loads it
+      a checkpoint at frame 40 and runs to 60; a fresh engine loads it
       (frame, keyframes, groups, merge log and the reference pyramid as
-      saved) and runs on from a loader started at frame 60: its tracked
+      saved) and runs on from a loader started at frame 40: its tracked
       poses within 1% of run B's camera-0 path (RMS of the camera
       centres, B's path from its bootstrap on) of run B's, or, where the
       two uninterrupted runs A and B bootstrap at the same frame and
       drift further apart than that (Sim(3)-aligned centres over frames
-      0-79: the card's atomic sums change order from run to run), within
+      0-59: the card's atomic sums change order from run to run), within
       that drift; the exported featpts hold every frame after the
       bootstrap of every camera;
     - run C: the first 20 frames resident on the card (no loader, no
@@ -1802,6 +2010,7 @@ def phase_distorted_io(card: str):
     from coslam_torch.io.loader import FrameLoader, native_lib
     from coslam_torch.io.synthetic import (apply_distortion_warp, make_room,
                                            render_sequence)
+    from coslam_torch.ops import launch_counts, reset_launch_counts
     from coslam_torch.ops.flow import tvl1_flow
     from coslam_torch.slam.pipeline import CoSlamEngine
     n, C = DIST_FRAMES, 3
@@ -1826,7 +2035,6 @@ def phase_distorted_io(card: str):
                                device="cuda").float()
     c_gt = camera_centers(Rs_gt[0], ts_gt[0])
     path = float(np.linalg.norm(np.diff(c_gt, axis=0), axis=-1).sum())
-    counters = kernel_counters()
     with tempfile.TemporaryDirectory() as root:
         inp = write_inputs(root, frames_u8, kc)
         videos = [os.path.join(root, f"cam{c}.csrw") for c in range(C)]
@@ -1844,12 +2052,11 @@ def phase_distorted_io(card: str):
             f"card {card}")
         # run A: the CLI end to end
         out = os.path.join(root, "results")
-        for fn in counters.values():
-            fn.launches = 0
+        reset_launch_counts()
         held_a = reset_peak_memory()
         with SyncCounter() as sc, FrameClock(sc) as clock_a:
             eng_a = cli.main([inp, "--out", out])
-        launches = {k: fn.launches for k, fn in counters.items()}
+        launches = launch_counts()
         peak_a = peak_memory_mib()
         trajs_a = [load_campose(os.path.join(out, f"{c}_campose.txt"))
                    for c in range(C)]
@@ -1886,7 +2093,7 @@ def phase_distorted_io(card: str):
             "klt_track on every tracked frame":
                 launches["klt_track"] == n - 1,
             **launch_checks(launches, search=False)})
-        # run B: checkpoint at frame 60 and resume
+        # run B: checkpoint at frame DIST_SAVE and resume
         ck = os.path.join(root, "ck.npz")
         eng_b = CoSlamEngine(production_cfg(C), np.repeat(KPROD[None], C, 0),
                              kc, log_features=True)
@@ -2000,9 +2207,10 @@ def phase_distorted_io(card: str):
     return launches
 
 
-MESH_FRAMES = 60                 # of fivecam_mesh's 150 (ACCURACY.md:23)
+MESH_FRAMES = 48                 # of fivecam_mesh's 150 (ACCURACY.md:23)
 MESH_CHUNK = 6                   # examples/accuracy_bench.py:136
 BA_REPS = 5                      # timed solves of each BA, median
+DRYRUN_SIZES = (5, 8)            # the dry runs' mesh sizes
 
 
 def mesh_devices(n: int) -> list[str]:
@@ -2106,7 +2314,7 @@ def mesh_census_log(mesh) -> dict:
 
 def phase_fivecam_mesh(card: str):
     """fivecam_mesh (BASELINE config 5, examples/accuracy_bench.py:292-322)
-    at the production configuration: five cameras on a rig, 60 of its 150
+    at the production configuration: five cameras on a rig, 48 of its 150
     frames, the chunked engine (chunk=6) on a mesh of one camera a shard
     over mesh_devices, the frames copied from the host straight to their
     shards. The wide-baseline bootstrap by frame 2, one group, every
@@ -2121,6 +2329,7 @@ def phase_fivecam_mesh(card: str):
     frames), synchronizing calls, peak memory per card."""
     import contextlib
     from coslam_torch.io.ate import ate_rmse, camera_centers
+    from coslam_torch.ops import launch_counts, reset_launch_counts
     from coslam_torch.parallel.mesh import make_cam_mesh
     from coslam_torch.slam.pipeline import CoSlamEngine
     n, C = MESH_FRAMES, 5
@@ -2136,9 +2345,7 @@ def phase_fivecam_mesh(card: str):
     K = np.repeat(KPROD[None], C, 0)
     eng = CoSlamEngine(cfg, K, np.zeros((C, 5), np.float32), device=devs[0],
                        chunk=MESH_CHUNK, mesh=mesh)
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_launch_counts()
     held = reset_peak_memory()
     calls = []                  # (wall ms, frames the call stepped)
     t_run = time.perf_counter()
@@ -2152,7 +2359,7 @@ def phase_fivecam_mesh(card: str):
                           len(steps.steps) - n0))
         trajs = [eng.trajectory(c, correct=True) for c in range(C)]
     run_s = time.perf_counter() - t_run
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = launch_counts()
     peak = peak_memory_mib()
     ids, xyz, cov = eng.map_points()
     path = float(np.linalg.norm(np.diff(camera_centers(Rs_gt[0], ts_gt[0]),
@@ -2254,8 +2461,9 @@ def bench_ba_problem(n_shards: int, dev):
 
 def phase_parallel(card: str, mono_frames):
     """The multi-device layer's records on the card's devices:
-    - run_dryrun(5) at 480x640 with 1024 features (one mesh step, both
-      distributed BAs);
+    - run_dryrun(5) and run_dryrun(8) (the size of the JAX package's own
+      multi-device dry run) at 480x640 with 1024 features (one mesh step,
+      both distributed BAs);
     - dist_bundle_adjust_table over 5 point shards (mesh_devices) against
       bundle_adjust_table on one card on bench.py's problem, R and t within
       5e-4 and X within 5e-3 (points seen twice or more), both timed (CUDA
@@ -2272,13 +2480,15 @@ def phase_parallel(card: str, mono_frames):
     from coslam_torch.parallel.dryrun import run_dryrun
     from coslam_torch.parallel.mesh import make_cam_mesh
     from coslam_torch.solvers.ba import bundle_adjust_table
+    dry = {}
+    for k in DRYRUN_SIZES:
+        t0 = time.perf_counter()
+        dry[k] = run_dryrun(k, h=H, w=W, feats=N_FEAT, verbose=False,
+                            devices=mesh_devices(k))
+        log(f"parallel: run_dryrun({k}) at {H}x{W}, {N_FEAT} features on "
+            f"{mesh_devices(k)}: {json.dumps(dry[k])} in "
+            f"{time.perf_counter() - t0:.2f} s")
     n = 5
-    t0 = time.perf_counter()
-    dry = run_dryrun(n, h=H, w=W, feats=N_FEAT, verbose=False,
-                     devices=mesh_devices(n))
-    log(f"parallel: run_dryrun({n}) at {H}x{W}, {N_FEAT} features on "
-        f"{mesh_devices(n)}: {json.dumps(dry)} in "
-        f"{time.perf_counter() - t0:.2f} s")
     mesh = make_cam_mesh(devices=mesh_devices(n))
     prob, seen = bench_ba_problem(n, mesh.main)
     kw = dict(max_err=10.0, max_iter=2, inner_iter=30)
@@ -2330,7 +2540,8 @@ def phase_parallel(card: str, mono_frames):
         f"({100 * ate / path:.4f}%); tracked-frame median "
         f"{frame_times(eng, frame_ms)[1]:.3f} ms; card {card}")
     check("parallel", {
-        "dry run": len(dry["n_tracked"]) == n and min(dry["n_tracked"]) > 0,
+        **{f"dry run over {k}": len(d["n_tracked"]) == k
+           and min(d["n_tracked"]) > 0 for k, d in dry.items()},
         "distributed BA: R within 5e-4": d_R <= 5e-4,
         "distributed BA: t within 5e-4": d_t <= 5e-4,
         "distributed BA: X within 5e-3": d_X <= 5e-3,
@@ -2347,8 +2558,6 @@ ACC_KEYS = ("config", "cams", "frames", "shape", "ate", "ate_max",
             "ate_pct_path", "path_len", "fps", "n_merges", "merges_noop",
             "n_loops", "n_keyframes", "eval_from")
 SYNTHETIC_ATE = 0.20             # run_synthetic's own bound
-
-
 def phase_accuracy_harness(card: str):
     """The port's accuracy harness in-process
     (``coslam_torch.examples.accuracy_bench``): config_occlusion at its full
@@ -2370,13 +2579,17 @@ def phase_accuracy_harness(card: str):
     from coslam_torch.examples import (accuracy_bench, run_synthetic,
                                        visualize_results)
     from coslam_torch.io.export import export_results
+    from coslam_torch.ops import launch_counts, reset_launch_counts
     F = accuracy_bench.DEFAULT_FRAMES["occlusion"]
     f0, f1 = int(F * 0.25), int(F * 0.45)
     engines = {}
     held = reset_peak_memory()
+    reset_launch_counts()       # the harness zeroes the totals only
     t0 = time.perf_counter()
     row = accuracy_bench.config_occlusion(
         F, np.random.default_rng(accuracy_bench.SEED), engines=engines)
+    launches = {**row["launches"], **{
+        k: n for k, n in launch_counts().items() if k.endswith("_general")}}
     log(f"accuracy_harness: occlusion {F} frames in "
         f"{time.perf_counter() - t0:.2f} s (the render included)")
     eng = engines.pop("occlusion")
@@ -2392,7 +2605,7 @@ def phase_accuracy_harness(card: str):
     log(f"accuracy_harness: wall {1e3 / row['fps']:.3f} ms a frame "
         f"(chunk=6, one sync at the end); peak device memory "
         f"{row['peak_mem_mib']} MiB (held at the phase's start {held}); "
-        f"kernel launches {row['launches']}; card {card}")
+        f"kernel launches {launches}; card {card}")
     checks = {
         "every row key present and finite":
             all(k in row for k in ACC_KEYS)
@@ -2405,7 +2618,7 @@ def phase_accuracy_harness(card: str):
         "one group at the end": gh[-1][0] == gh[-1][1],
         "max ATE from f1+20 < 2% of camera 0's path":
             row["ate_max"] < 0.02 * row["path_len"],
-        **launch_checks(row["launches"], search=False),
+        **launch_checks(launches, search=False),
     }
     # the synthetic smoke run, on the card
     out = io.StringIO()
@@ -2435,7 +2648,7 @@ def phase_accuracy_harness(card: str):
     checks["PLY vertices: map points + 8 (F - 1) a camera"] = n_vert == want
     del eng, engines
     check("accuracy_harness", checks)
-    return row["launches"]
+    return launches
 
 
 def finite_numbers(tree) -> bool:
@@ -2466,7 +2679,8 @@ def phase_timing_tools(card: str):
     import io
     from coslam_torch.examples import (profile_ablate, profile_ba,
                                        profile_engine, profile_stages)
-    counters = kernel_counters()
+    from coslam_torch.ops import kernel_wrappers, launch_counts
+    counters = kernel_wrappers()
     # profile_ablate last: the first launches after a torch.profiler run
     # are slower (on the H100, profile_ba's normal terms took 51 ms a call
     # right after profile_ablate, 4.8 ms on its next run), so no tool's
@@ -2504,7 +2718,7 @@ def phase_timing_tools(card: str):
         checks[f"profile_stages: {stage} launched {kernel}"] = \
             per_call[stage][kernel] >= 1
     check("timing_tools", checks)
-    return {k: fn.launches for k, fn in counters.items()}
+    return launch_counts()
 
 
 def main():
@@ -2545,13 +2759,14 @@ def main():
 def run_phases(smi: str, cpu_runs: dict, args, lap):
     """Every phase after the device check, in order. Returns the kernel
     records of each shape and the launches of each path."""
+    from coslam_torch.ops import reset_launch_counts
     phase_build()
     lap("build")
     per_shape = phase_kernels()
     lap("kernels")
     phase_small_agreement(cpu_runs)
     lap("small agreement")
-    mono, (snap, frames), n_kf = phase_main_path(smi)
+    mono, (snap, frames), n_kf, fused_wall = phase_main_path(smi)
     mono_frames = frames
     lap("mono")
     phase_profile(snap, frames, PROFILE_WARM[0], smi, args.profile_table,
@@ -2560,6 +2775,10 @@ def run_phases(smi: str, cpu_runs: dict, args, lap):
     lap("mono profile")
     modes = phase_modes(smi, frames, n_kf)
     lap("modes")
+    general_radius = phase_general_radius(smi, frames, fused_wall)
+    lap("general_radius")
+    non_fused = phase_non_fused(smi, frames, fused_wall)
+    lap("non_fused")
     phase_non_fused_small_agreement(cpu_runs)
     lap("non-fused small agreement")
     two_camera = phase_multicam_small_agreement(cpu_runs)
@@ -2592,11 +2811,12 @@ def run_phases(smi: str, cpu_runs: dict, args, lap):
     lap("parallel")
     harness = phase_accuracy_harness(smi)
     lap("accuracy_harness")
-    for fn in kernel_counters().values():
-        fn.launches = 0
+    reset_launch_counts()
     tools = phase_timing_tools(smi)
     lap("timing_tools")
-    by_path = {"mono": mono, "modes": modes, "threecam_dyn": multi,
+    by_path = {"mono": mono, "modes": modes,
+               "general_radius": general_radius, "non_fused": non_fused,
+               "threecam_dyn": multi,
                "splitmerge": split, "mono_loop": loop, "distorted_io": dist,
                "fivecam_mesh": fivecam, "accuracy_harness": harness,
                "timing_tools": tools}
@@ -2644,9 +2864,13 @@ def report(name, count, smi, per_shape, by_path, t_start):
                 "shape", "max_abs_err", "ms", "eager_ms", "plain_ms",
                 "bound_ms", "activities", "plain_activities")}
         if kname in general:
-            rec["general_radius"] = {k: general[kname][k] for k in (
-                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                "bound_by")}
+            by_route = {p: c[f"{kname}_general"] for p, c in by_path.items()}
+            rec["general_radius"] = {
+                **{k: general[kname][k] for k in (
+                    "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by")},
+                "launches": sum(by_route.values()),
+                "launches_by_path": by_route}
         if kname == "extract_windows":
             loop_rec = recs[-1]     # the loop closure's G = 43 search
             rec["loop_search"] = {k: loop_rec[k] for k in (

@@ -38,6 +38,13 @@ from coslam_torch.ops.pyramid import MAX_LEVELS, Pyramid
 # search margin per level (px): integer displacement handled inside one
 # window without re-extraction
 _MARGIN = 6
+# the largest window radius of the kernel's tuned path
+# (csrc/klt_track.cu, MAX_RADIUS); larger radii launch its general kernel.
+# A copy of the source's limit, read by the general-launch count only:
+# chip_smoke.py's route checks hold that count against the kernel name a
+# trace shows, so a change to either side that the other misses fails
+# there.
+TUNED_MAX_RADIUS = 7
 
 
 class KLTResult(NamedTuple):
@@ -242,6 +249,7 @@ def _klt_track_cuda(pyr_prev: Pyramid, pyr_cur: Pyramid, pos: torch.Tensor,
                 torch.cuda.current_stream().cuda_stream)
     cuda_lib.check("klt_track", rc)
     klt_track.launches += 1
+    klt_track.general_launches += r > TUNED_MAX_RADIUS
     return KLTResult(pos=pos_out, valid=valid_out, ssd=ssd, gain=gain)
 
 
@@ -258,3 +266,4 @@ def klt_track(pyr_prev: Pyramid, pyr_cur: Pyramid, pos: torch.Tensor,
 
 
 klt_track.launches = 0   # kernel launches (CUDA tensors only)
+klt_track.general_launches = 0   # of them, launches of the general kernel

@@ -31,6 +31,16 @@ from coslam_torch.ops import cuda_lib
 from coslam_torch.ops.patches import clamp_origins, extract_windows, frac_shift
 
 NCC_INVALID = -2.0
+# the largest radii of the kernels' tuned paths (csrc/ncc_blocks.cu and
+# csrc/ncc_search.cu, MAX_RADIUS and MAX_SEARCH); larger ones launch their
+# general kernels. ncc_search.cu also sends a window of over 48 KB of
+# shared memory there, which no radii within these need (45,964 B at 7
+# and 20). Copies of the sources' limits, read by the general-launch
+# counts only: chip_smoke.py's route checks hold those counts against the
+# kernel names a trace shows, so a change to either side that the other
+# misses fails there.
+TUNED_MAX_RADIUS = 7
+TUNED_MAX_SEARCH = 20
 
 
 def _normalize_blocks(raw, pos, h, w, radius):
@@ -103,6 +113,7 @@ def _ncc_blocks_cuda(imgs: torch.Tensor, pos: torch.Tensor, radius: int):
                 H - 1.001 - radius, torch.cuda.current_stream().cuda_stream)
     cuda_lib.check("ncc_blocks", rc)
     extract_ncc_blocks_batched.launches += 1
+    extract_ncc_blocks_batched.general_launches += radius > TUNED_MAX_RADIUS
     return blocks, ok
 
 
@@ -119,6 +130,7 @@ def extract_ncc_blocks_batched(imgs: torch.Tensor, pos: torch.Tensor,
 
 
 extract_ncc_blocks_batched.launches = 0   # kernel launches (CUDA only)
+extract_ncc_blocks_batched.general_launches = 0   # of them, general kernel
 
 
 def extract_ncc_blocks(img: torch.Tensor, pos: torch.Tensor, radius: int = 5):
@@ -219,6 +231,8 @@ def _ncc_search_cuda(img: torch.Tensor, centers: torch.Tensor,
                 torch.cuda.current_stream().cuda_stream)
     cuda_lib.check("ncc_search", rc)
     ncc_search.launches += 1
+    ncc_search.general_launches += patch_radius > TUNED_MAX_RADIUS or \
+        search_radius > TUNED_MAX_SEARCH
     return best_px, best_score
 
 
@@ -245,3 +259,4 @@ def ncc_search(img: torch.Tensor, centers: torch.Tensor,
 
 
 ncc_search.launches = 0   # kernel launches (CUDA tensors only)
+ncc_search.general_launches = 0   # of them, launches of the general kernel

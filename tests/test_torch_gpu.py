@@ -2,7 +2,8 @@
 (build_pyramid, klt_track, extract_windows, ncc_blocks, ncc_search)
 against its plain PyTorch version at the main paths' shapes (one camera
 and three; the loop closure's search), the wrappers' input checks, the
-kernels' general paths for radii above the tuned ones, the engine on the
+kernels' general paths for radii above the tuned ones (alone, and in an
+engine run at radius 9 that launches only them), the engine on the
 card against the same run on the CPU (one camera, and two on the rig),
 a tracked step that never waits on the host, the overlap mode's pinned
 buffers, asynchronous BA on a side stream, the batched render and the
@@ -506,6 +507,39 @@ def test_ncc_search_general_path_matches_plain(cuda, patch_radius,
     np.testing.assert_allclose(gsc[same], wsc[same], atol=1e-4)
     assert (gsc[:3] == -2.0).all() and (wsc[:3] == -2.0).all()
     assert (np.abs(gpx[3:] - true[3:]).max(1) == 0).mean() > 0.9
+
+
+def test_engine_at_radius_9_runs_the_general_kernels(cuda):
+    """20 frames of the two-camera engine (the rig of
+    test_two_camera_engine_on_the_card_matches_the_cpu) with the KLT
+    window radius and the NCC patch radius at 9: klt_track takes its
+    general kernel on every frame after the first, ncc_blocks on every
+    launch, and neither tuned kernel launches; the run bootstraps at
+    frame 0 with its poses under that test's ATE bound."""
+    import dataclasses
+    from coslam_torch.config import small_test_config
+    from coslam_torch.io.ate import ate_rmse
+    from coslam_torch.ops import launch_counts
+    from coslam_torch.slam.pipeline import CoSlamEngine
+    C, n = 2, 20
+    frames, Rs, ts = _card_frames(C, n)
+    cfg = small_test_config(C, tp.H, tp.W)
+    cfg = cfg.replace(
+        klt=dataclasses.replace(cfg.klt, window_radius=9),
+        p=dataclasses.replace(cfg.p, ncc_patch_radius=9))
+    eng = CoSlamEngine(cfg, *tp.kmats(C), device=cuda)
+    n0 = launch_counts()
+    for f in range(n):
+        eng.process_frame(frames[f])
+    torch.cuda.synchronize()
+    got = {k: v - n0[k] for k, v in launch_counts().items()}
+    assert got["klt_track"] == got["klt_track_general"] == n - 1
+    assert got["ncc_blocks"] == got["ncc_blocks_general"] > 0
+    assert got["ncc_search"] == got["ncc_search_general"] == 0
+    assert tuple(eng.state.mappts.ncc.shape[1:]) == (C, 19 * 19)
+    assert tp.boot_frame(eng.stats_log) == 0
+    for c in range(C):
+        assert ate_rmse(*eng.trajectory(c, True), Rs[c], ts[c]) < 0.25
 
 
 # ------------------------------------------------------- engine modes ----

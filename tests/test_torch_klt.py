@@ -25,22 +25,6 @@ import torch_parity as tp
 K1_TOL = 1e-3
 
 
-def _two_camera_case(rng, gain1=0.85):
-    h, w, n = 120, 160, 40
-    imgs0, imgs1 = [], []
-    for dx, dy, gain in ((1.7, -2.2, 1.0), (-4.0, 3.5, gain1)):
-        img0 = tp.smooth_texture(rng, h, w)
-        imgs0.append(img0)
-        imgs1.append(tp.shift_image(img0, dx, dy) * gain)
-    imgs0, imgs1 = np.concatenate(imgs0), np.concatenate(imgs1)
-    pos = rng.uniform([20, 20], [w - 20, h - 20], (2, n, 2))
-    pos[:, :4] = rng.uniform([1, 1], [w - 2, h - 2], (2, 4, 2))   # border
-    pos[1, 5] = [-30.0, 400.0]                                     # far off
-    valid = rng.random((2, n)) > 0.1
-    valid[1, 5] = False
-    return imgs0, imgs1, pos.astype(np.float32), valid
-
-
 @pytest.mark.parametrize("with_gain", [True, False])
 def test_klt_two_cameras_matches_jax(rng, with_gain):
     from coslam_tpu.config import KLTConfig as JK
@@ -49,7 +33,7 @@ def test_klt_two_cameras_matches_jax(rng, with_gain):
     from coslam_torch.config import KLTConfig as TK
     from coslam_torch.ops.klt import _kept_levels, klt_track_plain
     # without the gain model a brightness change fails the SSD threshold
-    imgs0, imgs1, pos, valid = _two_camera_case(
+    imgs0, imgs1, pos, valid = tp.klt_two_camera_case(
         rng, 0.85 if with_gain else 1.0)
     p0, p1 = jbp(jnp.asarray(imgs0), 4), jbp(jnp.asarray(imgs1), 4)
     t0, t1 = tp.pyramid_to_torch(p0), tp.pyramid_to_torch(p1)
@@ -94,7 +78,7 @@ def test_done_features_stay_put(rng):
     from coslam_torch.config import KLTConfig
     from coslam_torch.ops.klt import _track_level
     from coslam_torch.ops.pyramid import build_pyramid_plain
-    imgs0, imgs1, pos, valid = _two_camera_case(rng)
+    imgs0, imgs1, pos, valid = tp.klt_two_camera_case(rng)
     p0 = build_pyramid_plain(tp.t(imgs0), 1)
     p1 = build_pyramid_plain(tp.t(imgs1), 1)
     pos_f = tp.t(pos).reshape(-1, 2)

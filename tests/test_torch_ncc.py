@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import torch_parity as tp
 
 
-@pytest.mark.parametrize("radius", [3, 5, 7])
+@pytest.mark.parametrize("radius", [3, 5, 7, 9])
 def test_ncc_blocks_batched_engine_shape(rng, radius):
     """Three cameras, N = 1024 each, on 120x160 textures: positions over
     and past the image, on the in-bounds limits, one NaN, and a

@@ -81,6 +81,27 @@ def shift_image(img, dx, dy):
     return out.astype(np.float32)[None]
 
 
+def klt_two_camera_case(rng, gain1=0.85):
+    """KLT inputs of two cameras on 120x160 smooth textures (camera 1
+    shifted by (-4, 3.5) px and its brightness scaled by ``gain1``): 40
+    positions each, 4 of them near the border, one far off the image and
+    invalid, ~10% invalid. Returns (imgs0, imgs1 [2, H, W], pos [2, 40, 2],
+    valid [2, 40]), numpy."""
+    h, w, n = 120, 160, 40
+    imgs0, imgs1 = [], []
+    for dx, dy, gain in ((1.7, -2.2, 1.0), (-4.0, 3.5, gain1)):
+        img0 = smooth_texture(rng, h, w)
+        imgs0.append(img0)
+        imgs1.append(shift_image(img0, dx, dy) * gain)
+    imgs0, imgs1 = np.concatenate(imgs0), np.concatenate(imgs1)
+    pos = rng.uniform([20, 20], [w - 20, h - 20], (2, n, 2))
+    pos[:, :4] = rng.uniform([1, 1], [w - 2, h - 2], (2, 4, 2))   # border
+    pos[1, 5] = [-30.0, 400.0]                                     # far off
+    valid = rng.random((2, n)) > 0.1
+    valid[1, 5] = False
+    return imgs0, imgs1, pos.astype(np.float32), valid
+
+
 def render_mono_frames(n_frames: int, forward: float = 0.06):
     """Frames of the synthetic room rendered by the JAX package (seed 0),
     with their ground-truth poses."""
@@ -178,25 +199,28 @@ def _hand_over(eng, snap):
     eng.rel = [list(tr) for tr in snap["rel"]]
 
 
-def run_jax_engine(frames, snapshots=(), **engine_kw):
+def run_jax_engine(frames, snapshots=(), cfg_mut=None, **engine_kw):
     """Drive the JAX engine over ``frames`` [F, C, H, W] (or [F, H, W] for
-    one camera) at small_test_config(C, H, W), with the engine keyword
-    arguments ``engine_kw`` (chunk, overlap, async_ba, use_fused,
-    profile). Returns a dict: the engine's host logs, its corrected
-    trajectories (one per camera), what ``_drive`` counts and, for each
-    frame k in ``snapshots``, (state, pyr_prev) as numpy trees right after
-    frame k was processed."""
+    one camera) at small_test_config(C, H, W), changed by ``cfg_mut`` (a
+    function of the config, for either package's) where given, with the
+    engine keyword arguments ``engine_kw`` (chunk, overlap, async_ba,
+    use_fused, profile). Returns a dict: the engine's host logs, its
+    corrected trajectories (one per camera), what ``_drive`` counts and,
+    for each frame k in ``snapshots``, (state, pyr_prev) as numpy trees
+    right after frame k was processed."""
     from coslam_tpu.config import small_test_config
     from coslam_tpu.slam.pipeline import CoSlamEngine
     if frames.ndim == 3:
         frames = frames[:, None]
     C = frames.shape[1]
     cfg = small_test_config(num_cameras=C, h=H, w=W)
+    if cfg_mut is not None:
+        cfg = cfg_mut(cfg)
     eng = CoSlamEngine(cfg, *kmats(C), **engine_kw)
     return _drive(eng, frames, snapshots, to_numpy)
 
 
-def run_port_engine(frames, handover=None, **engine_kw):
+def run_port_engine(frames, handover=None, cfg_mut=None, **engine_kw):
     """``run_jax_engine`` for the port's engine on the CPU. ``handover``: a
     JAX run's ``boot`` snapshot, which the port's engine takes over right
     after its own bootstrap at that frame, so that the runs differ only in
@@ -206,8 +230,10 @@ def run_port_engine(frames, handover=None, **engine_kw):
     if frames.ndim == 3:
         frames = frames[:, None]
     C = frames.shape[1]
-    eng = CoSlamEngine(small_test_config(C, H, W), *kmats(C), device="cpu",
-                       **engine_kw)
+    cfg = small_test_config(C, H, W)
+    if cfg_mut is not None:
+        cfg = cfg_mut(cfg)
+    eng = CoSlamEngine(cfg, *kmats(C), device="cpu", **engine_kw)
     return _drive(eng, frames, (), None, handover)
 
 
