@@ -1,0 +1,7 @@
+"""klt_track's share of its roofline (see metrics/_roofline.py)."""
+
+from slambench.metrics._roofline import share
+
+
+def read(run):
+    return share(run, "klt_track")
