@@ -28,12 +28,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from coslam_torch.config import KLTConfig
 from coslam_torch.ops import cuda_lib
 from coslam_torch.ops.patches import clamp_origins, extract_windows, frac_shift
 from coslam_torch.ops.pyramid import MAX_LEVELS, Pyramid
+from coslam_torch.spans import span
 
 # search margin per level (px): integer displacement handled inside one
 # window without re-extraction
@@ -259,7 +259,7 @@ def klt_track(pyr_prev: Pyramid, pyr_cur: Pyramid, pos: torch.Tensor,
     pyr_*: camera-batched pyramids; pos: [C, N, 2]; valid: [C, N]. Every
     slot is tracked, valid or not. CUDA tensors launch the kernel once (or
     raise); CPU tensors take the plain twin."""
-    with record_function("klt_track"):
+    with span("klt_track"):
         if pos.is_cuda:
             return _klt_track_cuda(pyr_prev, pyr_cur, pos, valid, cfg)
         return klt_track_plain(pyr_prev, pyr_cur, pos, valid, cfg)

@@ -25,10 +25,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from coslam_torch.ops import cuda_lib
 from coslam_torch.ops.patches import clamp_origins, extract_windows, frac_shift
+from coslam_torch.spans import span
 
 NCC_INVALID = -2.0
 # the largest radii of the kernels' tuned paths (csrc/ncc_blocks.cu and
@@ -123,7 +123,7 @@ def extract_ncc_blocks_batched(imgs: torch.Tensor, pos: torch.Tensor,
     (blocks [C, N, (2r+1)^2] normalized, valid [C, N]); invalid blocks are
     zeroed (NCC 0). A CUDA tensor launches ``csrc/ncc_blocks.cu`` once (or
     raises); a CPU tensor takes the plain version."""
-    with record_function("ncc_blocks"):
+    with span("ncc_blocks"):
         if imgs.is_cuda or pos.is_cuda:
             return _ncc_blocks_cuda(imgs, pos, radius)
         return extract_ncc_blocks_batched_plain(imgs, pos, radius)
@@ -250,7 +250,7 @@ def ncc_search(img: torch.Tensor, centers: torch.Tensor,
     was clamped at the border scores NCC_INVALID. A CUDA tensor launches
     ``csrc/ncc_search.cu`` once (or raises); a CPU tensor takes the plain
     version."""
-    with record_function("ncc_search"):
+    with span("ncc_search"):
         if img.is_cuda or centers.is_cuda or templates.is_cuda:
             return _ncc_search_cuda(img, centers, templates, search_radius,
                                     patch_radius)

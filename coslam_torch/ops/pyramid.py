@@ -13,11 +13,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from coslam_torch.ops import cuda_lib
 from coslam_torch.ops.image import (downsample2, gaussian_blur,
                                     sobel_derivatives)
+from coslam_torch.spans import span
 
 MAX_LEVELS = 16   # csrc/build_pyramid.cu's level table
 
@@ -92,7 +92,7 @@ def build_pyramid(img: torch.Tensor, n_levels: int) -> Pyramid:
     """img: [C, H, W] f32 grayscale (0..255 scale). Returns n_levels
     levels; level 0 is the blurred full-res image. A CUDA tensor launches
     the kernel once (or raises); a CPU tensor takes the plain twin."""
-    with record_function("build_pyramid"):
+    with span("build_pyramid"):
         img = img.contiguous()
         if img.is_cuda:
             return _build_pyramid_cuda(img, n_levels)

@@ -42,6 +42,7 @@ from coslam_torch.slam.classify import (classify_map_points,
 from coslam_torch.slam.grouping import host_scan_device
 from coslam_torch.slam.state import (PT_DYNAMIC, ST_ALIVE, SlamState,
                                      TrackTable)
+from coslam_torch.spans import span
 from coslam_torch.util import to_device
 
 
@@ -203,51 +204,62 @@ def frame_step(state: SlamState, pyr_prev, imgs_cur, K: torch.Tensor,
     settle window after a merge or loop closure, where the realigned poses
     meet widened pose gates (the reference's largeErr frames). ``mesh``:
     the camera-sharded step (module docstring); ``imgs_cur`` is then one
-    tensor a shard and ``pyr_prev`` a ShardedPyramid."""
+    tensor a shard and ``pyr_prev`` a ShardedPyramid. Each stage runs in
+    its span (``step.pyramid`` to ``step.stats``)."""
     ncc_blocks = None
     if mesh is None:
         imgs_cur = imgs_cur.to(torch.float32)
         img_hw = (imgs_cur.shape[1], imgs_cur.shape[2])
-        pyr_cur = build_pyramid(imgs_cur, cfg.klt.n_levels)
-        tracks = steps.advance_tracks(pyr_prev, pyr_cur, state.tracks, K,
-                                      kc, state.frame + 1, cfg)
+        with span("step.pyramid"):
+            pyr_cur = build_pyramid(imgs_cur, cfg.klt.n_levels)
+        with span("step.track"):
+            tracks = steps.advance_tracks(pyr_prev, pyr_cur, state.tracks, K,
+                                          kc, state.frame + 1, cfg)
     else:
         img_hw = (imgs_cur[0].shape[1], imgs_cur[0].shape[2])
-        pyr_cur = pyr_prev.following(imgs_cur)
-        tracks, ncc_blocks = shard_advance_tracks(pyr_prev, pyr_cur,
-                                                  state.tracks, cfg)
+        with span("step.pyramid"):
+            pyr_cur = pyr_prev.following(imgs_cur)
+        with span("step.track"):
+            tracks, ncc_blocks = shard_advance_tracks(pyr_prev, pyr_cur,
+                                                      state.tracks, cfg)
     dev = state.R.device
     state = state._replace(tracks=tracks, frame=state.frame + 1)
-    out = steps.pose_update(state, K, kc, img_hw, cfg, large_err=large_err)
-    state = state._replace(R=out.R, t=out.t, tracks=out.tracks,
-                           mappts=out.mappts)
-    state = steps.push_pose_history(state)
-    if cfg.num_cameras > 1:
-        state = detect_dynamic_features(state, K, cfg)
-        cls = classify_map_points(state, K, cfg)
-        state = state._replace(mappts=cls.mappts, tracks=cls.tracks)
-        n_static, n_dynamic = cls.n_static, cls.n_dynamic
-    else:
-        n_static = torch.zeros((), dtype=torch.int32, device=dev)
-        n_dynamic = torch.zeros_like(n_static)
-    mappts, tracks2, n_new = steps.new_map_points(state, pyr_cur, K, kc, cfg,
-                                                  blocks=ncc_blocks)
-    mappts = steps.lifecycle_update(mappts, state.frame, cfg)
-    state = state._replace(mappts=mappts, tracks=tracks2)
-    # dynamic snapshot (up to D slots) for the host-side trajectory log
-    D = state.kfs.dyn_xyz.shape[1]
-    P = mappts.xyz.shape[0]
-    dyn = (mappts.status == ST_ALIVE) & (mappts.ptype == PT_DYNAMIC)
-    pt_of_d = steps._rank_to_index(dyn)[:D]
-    dyn_ids = torch.where(pt_of_d < P, pt_of_d, -1).to(torch.int32)
-    dyn_xyz = mappts.xyz[torch.clamp(pt_of_d, 0, P - 1).long()]
-    stats = FrameStats(
-        n_inliers=out.n_inliers, coverage=out.coverage,
-        med_depth=out.med_depth, med_err=out.med_err,
-        n_new_points=n_new, n_tracked=torch.sum(tracks2.valid, dim=1),
-        n_static=n_static, n_dynamic=n_dynamic,
-        n_mapped=torch.sum(tracks2.valid & (tracks2.mpt >= 0), dim=1),
-        R=state.R, t=state.t, dyn_ids=dyn_ids, dyn_xyz=dyn_xyz)
+    with span("step.pose_update"):
+        out = steps.pose_update(state, K, kc, img_hw, cfg,
+                                large_err=large_err)
+        state = state._replace(R=out.R, t=out.t, tracks=out.tracks,
+                               mappts=out.mappts)
+        state = steps.push_pose_history(state)
+    with span("step.classify"):
+        if cfg.num_cameras > 1:
+            state = detect_dynamic_features(state, K, cfg)
+            cls = classify_map_points(state, K, cfg)
+            state = state._replace(mappts=cls.mappts, tracks=cls.tracks)
+            n_static, n_dynamic = cls.n_static, cls.n_dynamic
+        else:
+            n_static = torch.zeros((), dtype=torch.int32, device=dev)
+            n_dynamic = torch.zeros_like(n_static)
+    with span("step.new_points"):
+        mappts, tracks2, n_new = steps.new_map_points(
+            state, pyr_cur, K, kc, cfg, blocks=ncc_blocks)
+    with span("step.lifecycle"):
+        mappts = steps.lifecycle_update(mappts, state.frame, cfg)
+        state = state._replace(mappts=mappts, tracks=tracks2)
+    with span("step.stats"):
+        # dynamic snapshot (up to D slots) for the host-side trajectory log
+        D = state.kfs.dyn_xyz.shape[1]
+        P = mappts.xyz.shape[0]
+        dyn = (mappts.status == ST_ALIVE) & (mappts.ptype == PT_DYNAMIC)
+        pt_of_d = steps._rank_to_index(dyn)[:D]
+        dyn_ids = torch.where(pt_of_d < P, pt_of_d, -1).to(torch.int32)
+        dyn_xyz = mappts.xyz[torch.clamp(pt_of_d, 0, P - 1).long()]
+        stats = FrameStats(
+            n_inliers=out.n_inliers, coverage=out.coverage,
+            med_depth=out.med_depth, med_err=out.med_err,
+            n_new_points=n_new, n_tracked=torch.sum(tracks2.valid, dim=1),
+            n_static=n_static, n_dynamic=n_dynamic,
+            n_mapped=torch.sum(tracks2.valid & (tracks2.mpt >= 0), dim=1),
+            R=state.R, t=state.t, dyn_ids=dyn_ids, dyn_xyz=dyn_xyz)
     return state, pyr_cur, stats
 
 

@@ -31,6 +31,7 @@ from coslam_torch.slam.state import (PT_DYNAMIC, PT_STATIC, ST_ALIVE,
                                      ST_FREE, MapPoints, SlamState)
 from coslam_torch.slam.steps import _rank_to_index
 from coslam_torch.solvers.ba import BAProblem, bundle_adjust
+from coslam_torch.spans import span
 from coslam_torch.util import set_drop
 
 
@@ -88,7 +89,8 @@ def intercam_map_group(state: SlamState, pyr_cur, K: torch.Tensor,
     fidx = fidx.reshape(G, M)
     obs_ok = fidx >= 0
     fsl = torch.clamp(fidx, min=0)
-    cam_t = torch.as_tensor(cams, device=dev)
+    with span("engine.wait.intercam_upload"):     # a blocking copy
+        cam_t = torch.as_tensor(cams, device=dev)
     px = torch.stack([tracks.pos[c][fsl[g]]
                       for g, c in enumerate(cams)])       # [G, M, 2]
     Rg, tg, Kg = state.R[cam_t], state.t[cam_t], K[cam_t]
@@ -138,8 +140,9 @@ def intercam_map_group(state: SlamState, pyr_cur, K: torch.Tensor,
             cth = torch.abs(sum(dirs[g1][i] * dirs[g2][i] for i in range(3)))
             both = obs_ok[g1] & obs_ok[g2]
             min_cos = torch.minimum(min_cos, torch.where(both, cth, one))
-    max_cos = torch.cos(torch.deg2rad(torch.tensor(
-        p.new_point_min_parallax_deg, dtype=dt))).to(dev)
+    with span("engine.wait.intercam_upload"):     # a blocking copy
+        max_cos = torch.cos(torch.deg2rad(torch.tensor(
+            p.new_point_min_parallax_deg, dtype=dt))).to(dev)
     fin = torch.isfinite(X_ln[0]) & torch.isfinite(X_ln[1]) & \
         torch.isfinite(X_ln[2])
     good = (torch.sum(obs_ok, dim=0) >= 2) & depth_ok & fin & \

@@ -39,6 +39,7 @@ from coslam_torch.slam.state import (LONG_STRIDE, PT_DYNAMIC, PT_STATIC,
 from coslam_torch.solvers.pose import irls_pose
 from coslam_torch.solvers.pose_graph import (PoseGraph, solve_rotations,
                                              solve_translations)
+from coslam_torch.spans import span
 from coslam_torch.util import to_host
 
 MAX_BRIDGE = 512     # fixed bridge capacity (pairs beyond keep the best NCC)
@@ -543,7 +544,8 @@ def fuse_close_points(state: SlamState, cfg: SlamConfig):
     (state', number of points killed)."""
     mp = state.mappts
     kill = _fuse_close_kill_mask(mp, state.R, state.t)
-    n = int(torch.sum(kill))
+    with span("engine.wait.fuse_count"):
+        n = int(torch.sum(kill))
     if n == 0:
         return state, 0
     status = torch.where(kill, torch.full_like(mp.status, ST_FALSE),

@@ -35,8 +35,8 @@ The engine modes of the reference:
   Merge and loop polish BAs stay synchronous.
 - ``use_fused=False``: the step's stages as separate calls, the cadence,
   then the lifecycle update.
-- ``profile``: ``timing`` accumulates wall seconds per stage (``_tick``),
-  synchronizing the card first.
+- ``profile``: the card is synchronized at each stage's end, so
+  ``timing`` holds each stage's execution, not its enqueueing.
 - ``log_features``: ``feat_log`` gets (frame, camera, map ids, pixels) of
   every mapped feature after each frame past the bootstrap (the
   reference's per-frame feature export), pulled after the cadence (one
@@ -52,8 +52,9 @@ The engine modes of the reference:
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-import time
 from types import SimpleNamespace
 from typing import Optional
 
@@ -91,6 +92,7 @@ from coslam_torch.solvers.pose_graph import (chain_graph,
                                              solve_chain_segments,
                                              solve_rotations,
                                              solve_translations)
+from coslam_torch.spans import span
 from coslam_torch.util import (nanmedian, resolve_device, set_drop,
                                to_device, to_host)
 
@@ -189,6 +191,8 @@ class CoSlamEngine:
                                  f"its mesh's first device {mesh.main}")
         self.mesh = mesh
         self.profile = profile
+        self._sync = functools.partial(torch.cuda.synchronize, self.device) \
+            if profile and self.device.type == "cuda" else None
         self.use_fused = use_fused
         self.async_ba = async_ba
         self.ba_device = ba_device
@@ -265,16 +269,18 @@ class CoSlamEngine:
     def img_hw(self):
         return (self.cfg.image_height, self.cfg.image_width)
 
-    def _tick(self, name: str, t0: float) -> float:
-        """Accumulate the wall time since ``t0`` under ``name`` (the
-        reference's per-stage clock). With ``profile=True`` the card is
-        synchronized first, so a stage's time is its execution, not its
-        enqueueing."""
-        if self.profile and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
-        self.timing[name] = self.timing.get(name, 0.0) + (t1 - t0)
-        return t1
+    @contextlib.contextmanager
+    def _stage(self, name: str, key: Optional[str] = None):
+        """The span ``name`` around a stage of this frame. With ``key`` the
+        span's seconds also go to ``timing[key]`` (the stage clock), and
+        with ``profile=True`` on a card the card is synchronized at the
+        stage's end, inside the span."""
+        with span(name, self.frame) as s:
+            yield
+            if key is not None and self._sync is not None:
+                self._sync()
+        if key is not None:
+            self.timing[key] = self.timing.get(key, 0.0) + s.seconds
 
     def resume_reference_frame(self, images):
         """After ``io.checkpoint.load_checkpoint`` of a checkpoint without
@@ -330,6 +336,10 @@ class CoSlamEngine:
         buffered frame returns {"frame", "buffered": True} and the chunk's
         last frame the cadence's statistics; in overlap mode the statistics
         are those of the previous tracked frame."""
+        with span("engine.frame", self.frame):
+            return self._process_frame(images)
+
+    def _process_frame(self, images) -> dict:
         cfg = self.cfg
         if self.chunk > 1 and self.bootstrapped and self.use_fused \
                 and self.frame > 0:
@@ -338,40 +348,42 @@ class CoSlamEngine:
                 return {"frame": self.frame + len(self._chunk_buf) - 1,
                         "buffered": True}
             return self._process_chunk()
-        t0 = time.perf_counter()
         self._pose_host_cache = None   # state.R/t will change this frame
         self._pose_prefetch = None
         self._kf_prefetch = None
-        imgs = self._upload(images)
-        t0 = self._tick("upload", t0)
+        with self._stage("engine.upload", "upload"):
+            imgs = self._upload(images)
         if self.bootstrapped and self.use_fused and self.frame > 0:
-            self.state, pyr, fs = frame_step(
-                self.state, self.pyr_prev, imgs, self.K, self.kc, cfg,
-                mesh=self.mesh, large_err=self.frame < self._large_err_until)
-            fsv = pack_stats(fs)
-            t0 = self._tick("core_fused", t0)
+            with self._stage("engine.step", "core_fused"):
+                self.state, pyr, fs = frame_step(
+                    self.state, self.pyr_prev, imgs, self.K, self.kc, cfg,
+                    mesh=self.mesh,
+                    large_err=self.frame < self._large_err_until)
+                fsv = pack_stats(fs)
             stats = {"frame": self.frame}
             log_entry = True
             if self.overlap:
                 # this frame's stats start copying now and are read next
                 # frame: the cadence acts on one-frame-old stats
-                pending = self._copies.start(fsv)
-                t0 = self._tick("copy_async", t0)
+                with self._stage("engine.copy_async", "copy_async"):
+                    pending = self._copies.start(fsv)
                 prev = self._pending_fs
                 self._pending_fs = (self.frame, pending)
                 if prev is not None:
                     pframe, pv = prev
                     stats["frame"] = pframe
-                    stats.update(self._host_cadence(pyr, pv, frame=pframe))
-                    t0 = self._tick("cadence_total", t0)
-                    self._record_pose()
-                    t0 = self._tick("record_pose", t0)
+                    with self._stage("engine.cadence", "cadence_total"):
+                        stats.update(self._host_cadence(pyr, pv,
+                                                        frame=pframe))
+                    with self._stage("engine.record_pose", "record_pose"):
+                        self._record_pose()
                 else:
                     # transition frame: its stats are read (and logged)
                     # next frame
                     log_entry = False
             else:
-                stats.update(self._host_cadence(pyr, fsv))
+                with self._stage("engine.cadence"):
+                    stats.update(self._host_cadence(pyr, fsv))
                 self._record_pose()
             if self.log_features:
                 self._log_features()
@@ -382,35 +394,34 @@ class CoSlamEngine:
             if log_entry:
                 self.stats_log.append(stats)
             return stats
-        pyr = self._pyramid(imgs, self.frame)
-        t0 = self._tick("pyramid", t0)
+        with self._stage("step.pyramid", "pyramid"):
+            pyr = self._pyramid(imgs, self.frame)
         stats = {"frame": self.frame}
         if self.frame == 0:
-            self._first_frame(pyr)
-            if cfg.num_cameras > 1:
-                stats["bootstrap"] = self._bootstrap_multicam(pyr)
-        else:
-            t1 = time.perf_counter()
-            blocks = None
-            if self.mesh is None:
-                tracks = steps.advance_tracks(
-                    self.pyr_prev, pyr, self.state.tracks, self.K, self.kc,
-                    self.state.frame + 1, cfg)
-            else:
-                # a tracked frame's NCC blocks are cut on the shards
-                tracks, blocks = shard_advance_tracks(
-                    self.pyr_prev, pyr, self.state.tracks, cfg,
-                    blocks=self.bootstrapped)
-            self.state = self.state._replace(tracks=tracks,
-                                             frame=self.state.frame + 1)
-            self._tick("tracking", t1)
-            if not self.bootstrapped:
-                t1 = time.perf_counter()
+            with self._stage("engine.bootstrap"):
+                self._first_frame(pyr)
                 if cfg.num_cameras > 1:
                     stats["bootstrap"] = self._bootstrap_multicam(pyr)
-                elif self.frame >= cfg.p.init_frames:
-                    stats["bootstrap"] = self._bootstrap(pyr)
-                self._tick("bootstrap", t1)
+        else:
+            blocks = None
+            with self._stage("step.track", "tracking"):
+                if self.mesh is None:
+                    tracks = steps.advance_tracks(
+                        self.pyr_prev, pyr, self.state.tracks, self.K,
+                        self.kc, self.state.frame + 1, cfg)
+                else:
+                    # a tracked frame's NCC blocks are cut on the shards
+                    tracks, blocks = shard_advance_tracks(
+                        self.pyr_prev, pyr, self.state.tracks, cfg,
+                        blocks=self.bootstrapped)
+                self.state = self.state._replace(tracks=tracks,
+                                                 frame=self.state.frame + 1)
+            if not self.bootstrapped:
+                with self._stage("engine.bootstrap", "bootstrap"):
+                    if cfg.num_cameras > 1:
+                        stats["bootstrap"] = self._bootstrap_multicam(pyr)
+                    elif self.frame >= cfg.p.init_frames:
+                        stats["bootstrap"] = self._bootstrap(pyr)
             else:
                 stats.update(self._tracked_frame(pyr, blocks))
         self._record_pose()
@@ -429,40 +440,38 @@ class CoSlamEngine:
         the cadence once at the boundary. Per-frame poses and dynamic
         snapshots come from the packed stats rows: the chunk is enqueued
         with no host wait until its one stats copy."""
-        t0 = time.perf_counter()
         buf, self._chunk_buf = self._chunk_buf, []
         n = len(buf)
         self._pose_host_cache = None
         self._pose_prefetch = None
         self._kf_prefetch = None
-        if self.mesh is None:
-            imgs = torch.stack([to_device(f, self.device) for f in buf]).to(
-                torch.float32)
-        else:
-            per = [shard_frames(self.mesh, f) for f in buf]
-            imgs = [torch.stack([p[k] for p in per])
-                    for k in range(len(self.mesh))]
-        t0 = self._tick("upload", t0)
-        self.state, pyr, flat = frame_steps_chunk(
-            self.state, self.pyr_prev, imgs, self.K, self.kc, self.cfg,
-            mesh=self.mesh, large_err=self.frame < self._large_err_until)
+        with self._stage("engine.upload", "upload"):
+            if self.mesh is None:
+                imgs = torch.stack([to_device(f, self.device)
+                                    for f in buf]).to(torch.float32)
+            else:
+                per = [shard_frames(self.mesh, f) for f in buf]
+                imgs = [torch.stack([p[k] for p in per])
+                        for k in range(len(self.mesh))]
+        with self._stage("engine.step", "core_chunk"):
+            self.state, pyr, flat = frame_steps_chunk(
+                self.state, self.pyr_prev, imgs, self.K, self.kc, self.cfg,
+                mesh=self.mesh, large_err=self.frame < self._large_err_until)
         self.pyr_prev = pyr
-        t0 = self._tick("core_chunk", t0)
         if self.overlap:
             # this chunk's stats start copying; the previous chunk's, whose
             # copy rode behind this chunk's work, are read now
             pending = self._chunk_pending
-            self._chunk_pending = (self.frame, n, self._copies.start(flat))
+            with self._stage("engine.copy_async", "copy_async"):
+                self._chunk_pending = (self.frame, n,
+                                       self._copies.start(flat))
             self.frame += n
-            t0 = self._tick("copy_async", t0)
             if pending is None:
                 return {"frame": self.frame - 1, "buffered": True}
-            out = self._consume_chunk_stats(*pending)
-            self._tick("cadence_total", t0)
-            return out
-        flat = flat.cpu().numpy()                   # the one round trip
-        t0 = self._tick("stats_wait", t0)
-        return self._ingest_chunk_rows(self.frame, n, flat, t0=t0)
+            return self._consume_chunk_stats(*pending)
+        with self._stage("engine.wait.stats", "stats_wait"):
+            flat = flat.cpu().numpy()               # the one round trip
+        return self._ingest_chunk_rows(self.frame, n, flat)
 
     def _consume_chunk_stats(self, f0: int, n: int, pending) -> dict:
         """Overlap mode: logs and cadence of a chunk the device has already
@@ -471,62 +480,62 @@ class CoSlamEngine:
         saved = self.frame
         self.frame = f0
         try:
-            return self._ingest_chunk_rows(f0, n, HostCopies.read(pending))
+            with self._stage("engine.wait.stats"):
+                flat = HostCopies.read(pending)
+            return self._ingest_chunk_rows(f0, n, flat)
         finally:
             self.frame = saved
 
-    def _ingest_chunk_rows(self, f0: int, n: int, flat: np.ndarray,
-                           t0: Optional[float] = None) -> dict:
+    def _ingest_chunk_rows(self, f0: int, n: int, flat: np.ndarray) -> dict:
         """Unpack a chunk's flat stats: per-frame poses, logs and dynamic
         snapshots, then the cadence on the last frame's stats, with the
-        chunk's scan block as the host-scan cache."""
-        C = self.cfg.num_cameras
-        pyr = self.pyr_prev
-        if t0 is None:
-            t0 = time.perf_counter()
-        scan_len = C * (3 * C + 2)
-        rows = flat[:len(flat) - scan_len].reshape(n, -1)
-        scan = flat[len(flat) - scan_len:].reshape(C, 3 * C + 2)
-        D = self.state.kfs.dyn_xyz.shape[1]
-        fs_last = None
-        for i in range(n):
-            fs = unpack_stats(rows[i], C, D)
-            fs_last = fs
-            self._pose_host_cache = (fs.R.copy(), fs.t.copy())
-            self._record_pose()
-            # the last row's snapshot is logged by the cadence below
-            if C > 1 and i < n - 1 and int(fs.n_dynamic) > 0:
-                sel = fs.dyn_ids >= 0
-                if sel.any():
-                    self.dyn_log.append((f0 + i, fs.dyn_ids[sel],
-                                         fs.dyn_xyz[sel]))
-            entry = {"frame": f0 + i, "n_inliers": fs.n_inliers,
-                     "coverage": fs.coverage, "med_err": fs.med_err,
-                     "med_depth": fs.med_depth,
-                     "n_new_points": int(fs.n_new_points)}
-            if C > 1:
-                entry["n_static"] = int(fs.n_static)
-                entry["n_dynamic"] = int(fs.n_dynamic)
-            self.stats_log.append(entry)
-            self.group_hist.append(tuple(self.group_id.tolist()))
-        self.frame = f0 + n - 1
-        self._poll_ba()
-        self._scan_cache = (scan[:, :C], scan[:, C:2 * C],
-                            scan[:, 2 * C:3 * C], scan[:, 3 * C],
-                            scan[:, 3 * C + 1])
-        self._scan_frame = self.frame
-        cstats = self._shared_cadence(
-            pyr, fs_last, n_mapped=fs_last.n_mapped,
-            n_new=int(fs_last.n_new_points),
-            dyn=(fs_last.dyn_ids, fs_last.dyn_xyz),
-            n_static=int(fs_last.n_static),
-            n_dynamic=int(fs_last.n_dynamic), frame=self.frame)
-        self.stats_log[-1].update(cstats)
-        if self.log_features:
-            self._log_features()
-        self.frame = f0 + n
-        self._tick("cadence_total", t0)
-        return self.stats_log[-1]
+        chunk's scan block as the host-scan cache (the chunk's
+        ``engine.cadence``: ``timing["cadence_total"]``)."""
+        with self._stage("engine.cadence", "cadence_total"):
+            C = self.cfg.num_cameras
+            pyr = self.pyr_prev
+            scan_len = C * (3 * C + 2)
+            rows = flat[:len(flat) - scan_len].reshape(n, -1)
+            scan = flat[len(flat) - scan_len:].reshape(C, 3 * C + 2)
+            D = self.state.kfs.dyn_xyz.shape[1]
+            fs_last = None
+            for i in range(n):
+                fs = unpack_stats(rows[i], C, D)
+                fs_last = fs
+                self._pose_host_cache = (fs.R.copy(), fs.t.copy())
+                self._record_pose()
+                # the last row's snapshot is logged by the cadence below
+                if C > 1 and i < n - 1 and int(fs.n_dynamic) > 0:
+                    sel = fs.dyn_ids >= 0
+                    if sel.any():
+                        self.dyn_log.append((f0 + i, fs.dyn_ids[sel],
+                                             fs.dyn_xyz[sel]))
+                entry = {"frame": f0 + i, "n_inliers": fs.n_inliers,
+                         "coverage": fs.coverage, "med_err": fs.med_err,
+                         "med_depth": fs.med_depth,
+                         "n_new_points": int(fs.n_new_points)}
+                if C > 1:
+                    entry["n_static"] = int(fs.n_static)
+                    entry["n_dynamic"] = int(fs.n_dynamic)
+                self.stats_log.append(entry)
+                self.group_hist.append(tuple(self.group_id.tolist()))
+            self.frame = f0 + n - 1
+            self._poll_ba()
+            self._scan_cache = (scan[:, :C], scan[:, C:2 * C],
+                                scan[:, 2 * C:3 * C], scan[:, 3 * C],
+                                scan[:, 3 * C + 1])
+            self._scan_frame = self.frame
+            cstats = self._shared_cadence(
+                pyr, fs_last, n_mapped=fs_last.n_mapped,
+                n_new=int(fs_last.n_new_points),
+                dyn=(fs_last.dyn_ids, fs_last.dyn_xyz),
+                n_static=int(fs_last.n_static),
+                n_dynamic=int(fs_last.n_dynamic), frame=self.frame)
+            self.stats_log[-1].update(cstats)
+            if self.log_features:
+                self._log_features()
+            self.frame = f0 + n
+            return self.stats_log[-1]
 
     def _flush_chunk(self):
         """Read the overlap-pending chunk's stats, then run any buffered
@@ -555,7 +564,9 @@ class CoSlamEngine:
         stats = {"frame": pframe}
         self._flushing = True
         try:
-            stats.update(self._host_cadence(self.pyr_prev, pv, frame=pframe))
+            with self._stage("engine.cadence"):
+                stats.update(self._host_cadence(self.pyr_prev, pv,
+                                                frame=pframe))
         finally:
             self._flushing = False
         self._record_pose()
@@ -729,14 +740,13 @@ class CoSlamEngine:
         packed stats tensor, or (overlap mode) a copy started a frame
         earlier; ``frame`` stamps the log entries (one frame back in overlap
         mode)."""
-        t0 = time.perf_counter()
-        self._poll_ba()
-        t0 = self._tick("poll_ba", t0)
-        v = HostCopies.read(fsv) if isinstance(fsv, tuple) else \
-            fsv.cpu().numpy()
-        fs = unpack_stats(v, self.cfg.num_cameras,
-                          self.state.kfs.dyn_xyz.shape[1])
-        self._tick("stats_wait", t0)
+        with self._stage("engine.poll_ba", "poll_ba"):
+            self._poll_ba()
+        with self._stage("engine.wait.stats", "stats_wait"):
+            v = HostCopies.read(fsv) if isinstance(fsv, tuple) else \
+                fsv.cpu().numpy()
+            fs = unpack_stats(v, self.cfg.num_cameras,
+                              self.state.kfs.dyn_xyz.shape[1])
         self._pose_host_cache = (fs.R.copy(), fs.t.copy())
         # the dynamic snapshot rides the stats copy
         return self._shared_cadence(
@@ -749,7 +759,8 @@ class CoSlamEngine:
         """(frame, camera, ids, xy) of every mapped feature of the current
         state into ``feat_log``."""
         tr = self.state.tracks
-        pos, mpt, valid = to_host(tr.pos, tr.mpt, tr.valid)
+        with span("engine.wait.features", self.frame):
+            pos, mpt, valid = to_host(tr.pos, tr.mpt, tr.valid)
         ok = valid & (mpt >= 0)
         for c in range(self.cfg.num_cameras):
             sel = np.nonzero(ok[c])[0]
@@ -764,43 +775,45 @@ class CoSlamEngine:
         mesh the NCC blocks (``blocks``) were cut on the shards."""
         cfg = self.cfg
         C = cfg.num_cameras
-        t0 = time.perf_counter()
-        self._poll_ba()
-        out = steps.pose_update(self.state, self.K, self.kc, self.img_hw,
-                                cfg,
-                                large_err=self.frame < self._large_err_until)
-        self.state = self.state._replace(
-            R=out.R, t=out.t, tracks=out.tracks, mappts=out.mappts)
-        self.state = steps.push_pose_history(self.state)
-        t0 = self._tick("pose_update", t0)
-        n_static = n_dynamic = torch.zeros((), dtype=torch.int32,
-                                           device=self.device)
-        if C > 1:
-            self.state = detect_dynamic_features(self.state, self.K, cfg)
-            cls = classify_map_points(self.state, self.K, cfg)
-            self.state = self.state._replace(mappts=cls.mappts,
-                                             tracks=cls.tracks)
-            n_static, n_dynamic = cls.n_static, cls.n_dynamic
-        t0 = self._tick("classify", t0)
-        mappts, tracks, n_new = steps.new_map_points(
-            self.state, pyr, self.K, self.kc, cfg, blocks=blocks)
-        self.state = self.state._replace(mappts=mappts, tracks=tracks)
-        self._tick("new_map_points", t0)
+        with self._stage("step.pose_update", "pose_update"):
+            self._poll_ba()
+            out = steps.pose_update(
+                self.state, self.K, self.kc, self.img_hw, cfg,
+                large_err=self.frame < self._large_err_until)
+            self.state = self.state._replace(
+                R=out.R, t=out.t, tracks=out.tracks, mappts=out.mappts)
+            self.state = steps.push_pose_history(self.state)
+        with self._stage("step.classify", "classify"):
+            n_static = n_dynamic = torch.zeros((), dtype=torch.int32,
+                                               device=self.device)
+            if C > 1:
+                self.state = detect_dynamic_features(self.state, self.K, cfg)
+                cls = classify_map_points(self.state, self.K, cfg)
+                self.state = self.state._replace(mappts=cls.mappts,
+                                                 tracks=cls.tracks)
+                n_static, n_dynamic = cls.n_static, cls.n_dynamic
+        with self._stage("step.new_points", "new_map_points"):
+            mappts, tracks, n_new = steps.new_map_points(
+                self.state, pyr, self.K, self.kc, cfg, blocks=blocks)
+            self.state = self.state._replace(mappts=mappts, tracks=tracks)
         n_mapped = torch.sum(tracks.valid & (tracks.mpt >= 0), dim=1)
-        n_inl, cover, med_err, med_depth, n_mapped, n_new, n_static, \
-            n_dynamic = to_host(out.n_inliers, out.coverage, out.med_err,
-                                out.med_depth, n_mapped, n_new, n_static,
-                                n_dynamic)
+        with self._stage("engine.wait.stats"):
+            n_inl, cover, med_err, med_depth, n_mapped, n_new, n_static, \
+                n_dynamic = to_host(out.n_inliers, out.coverage,
+                                    out.med_err, out.med_depth, n_mapped,
+                                    n_new, n_static, n_dynamic)
         host = SimpleNamespace(n_inliers=n_inl, coverage=cover,
                                med_err=med_err, med_depth=med_depth)
-        stats = self._shared_cadence(pyr, host, n_mapped=n_mapped,
-                                     n_new=int(n_new), dyn=None,
-                                     n_static=int(n_static),
-                                     n_dynamic=int(n_dynamic),
-                                     frame=self.frame)
-        self.state = self.state._replace(
-            mappts=steps.lifecycle_update(self.state.mappts,
-                                          self.state.frame, cfg))
+        with self._stage("engine.cadence"):
+            stats = self._shared_cadence(pyr, host, n_mapped=n_mapped,
+                                         n_new=int(n_new), dyn=None,
+                                         n_static=int(n_static),
+                                         n_dynamic=int(n_dynamic),
+                                         frame=self.frame)
+        with self._stage("step.lifecycle"):
+            self.state = self.state._replace(
+                mappts=steps.lifecycle_update(self.state.mappts,
+                                              self.state.frame, cfg))
         return stats
 
     def _shared_cadence(self, pyr, out, n_mapped: np.ndarray, n_new: int,
@@ -817,7 +830,6 @@ class CoSlamEngine:
         cfg = self.cfg
         p = cfg.p
         C = cfg.num_cameras
-        t0 = time.perf_counter()
         n_inl = np.asarray(out.n_inliers)
         cover = np.asarray(out.coverage)
         joint = False
@@ -825,42 +837,44 @@ class CoSlamEngine:
         if grouping_due:
             self._last_grouping = self.frame
         if C > 1:
-            # a camera whose static support collapsed (a mover filling its
-            # view) rides the joint solve through the dynamic points it
-            # shares with the others (interCamPoseUpdate); only the group's
-            # total static support must hold the frame
-            weak = (n_inl < p.min_static_for_ok) | (cover < p.min_static_cover)
-            if weak.any() and n_inl.sum() >= p.min_static_for_ok:
-                R, t = joint_pose_update(self.state, self.K, cfg)
-                self.state = steps.push_pose_history(
-                    self.state._replace(R=R, t=t))
-                self._pose_host_cache = None
-                self._pose_prefetch = None
-                joint = True
-            if n_dynamic > 0:
-                if dyn is not None:
-                    ids, xyz = dyn
-                    sel = ids >= 0
-                    if sel.any():
-                        self.dyn_log.append((frame, ids[sel], xyz[sel]))
-                else:
-                    self._store_dynamic_snapshot(frame)
-            # no re-grouping while shared observations re-form after a merge
-            if grouping_due and self._settled():
-                self._update_grouping()
-            t0 = self._tick("cad_grouping", t0)
+            with self._stage("engine.grouping", "cad_grouping"):
+                # a camera whose static support collapsed (a mover filling
+                # its view) rides the joint solve through the dynamic
+                # points it shares with the others (interCamPoseUpdate);
+                # only the group's total static support must hold the frame
+                weak = (n_inl < p.min_static_for_ok) | \
+                    (cover < p.min_static_cover)
+                if weak.any() and n_inl.sum() >= p.min_static_for_ok:
+                    R, t = joint_pose_update(self.state, self.K, cfg)
+                    self.state = steps.push_pose_history(
+                        self.state._replace(R=R, t=t))
+                    self._pose_host_cache = None
+                    self._pose_prefetch = None
+                    joint = True
+                if n_dynamic > 0:
+                    if dyn is not None:
+                        ids, xyz = dyn
+                        sel = ids >= 0
+                        if sel.any():
+                            self.dyn_log.append((frame, ids[sel], xyz[sel]))
+                    else:
+                        self._store_dynamic_snapshot(frame)
+                # no re-grouping while shared observations re-form after a
+                # merge
+                if grouping_due and self._settled():
+                    self._update_grouping()
             # group merge (mergeCamGroups) on the grouping tick, so it
             # never acts on stale group ids
-            if (len(np.unique(self.group_id)) > 1 and grouping_due
-                    and self.frame - self._last_merge
-                    >= p.merge_min_interval):
-                self._merge_tick(pyr)
-            t0 = self._tick("cad_merge", t0)
-        if grouping_due:
-            self._try_loop_closure(pyr)
-        t0 = self._tick("cad_loop", t0)
-        n_inter = self._intercam_cadence(pyr, n_mapped, n_inl)
-        t0 = self._tick("cad_intercam", t0)
+            with self._stage("engine.merge", "cad_merge"):
+                if (len(np.unique(self.group_id)) > 1 and grouping_due
+                        and self.frame - self._last_merge
+                        >= p.merge_min_interval):
+                    self._merge_tick(pyr)
+        with self._stage("engine.loop", "cad_loop"):
+            if grouping_due:
+                self._try_loop_closure(pyr)
+        with self._stage("engine.intercam", "cad_intercam"):
+            n_inter = self._intercam_cadence(pyr, n_mapped, n_inl)
         stats = {
             "n_inliers": n_inl,
             "coverage": cover,
@@ -873,31 +887,32 @@ class CoSlamEngine:
         if C > 1:
             stats["n_static"] = n_static
             stats["n_dynamic"] = n_dynamic
-        kf_ready = self._keyframe_ready(out)
-        t0 = self._tick("cad_kfready", t0)
+        with self._stage("engine.kf_ready", "cad_kfready"):
+            kf_ready = self._keyframe_ready(out)
         if kf_ready:
-            # a keyframe snapshots BA-consistent poses: an in-flight BA is
-            # applied first
-            self._apply_pending_ba()
-            self.state = self.state._replace(
-                kfs=steps.add_keyframe(self.state))
-            # the device's frame: while _flush_overlap runs, self.frame is
-            # one past the last processed frame
-            self.kf_frames.append(self.frame - 1 if self._flushing
-                                  else self.frame)
-            self._kf_inliers = n_inl.copy()
-            self._kf_pose_host = self._pose_host()
-            t0 = self._tick("cad_addkf", t0)
+            with self._stage("engine.keyframe", "cad_addkf"):
+                # a keyframe snapshots BA-consistent poses: an in-flight BA
+                # is applied first
+                self._apply_pending_ba()
+                self.state = self.state._replace(
+                    kfs=steps.add_keyframe(self.state))
+                # the device's frame: while _flush_overlap runs, self.frame
+                # is one past the last processed frame
+                self.kf_frames.append(self.frame - 1 if self._flushing
+                                      else self.frame)
+                self._kf_inliers = n_inl.copy()
+                self._kf_pose_host = self._pose_host()
             if len(self.kf_frames) % cfg.p.ba_cadence == 0:
-                self._run_ba()
-                # a solve that already finished is applied this frame
-                self._poll_ba()
-                t0 = self._tick("ba", t0)
+                with self._stage("ba.run", "ba"):
+                    self._run_ba()
+                    # a solve that already finished is applied this frame
+                    self._poll_ba()
             stats["keyframe"] = True
         # periodic duplicate unification (every 50th frame)
         if self.frame - self._last_fuse >= 50:
             self._last_fuse = self.frame
-            self.state, n_fused = fuse_close_points(self.state, cfg)
+            with self._stage("engine.fuse"):
+                self.state, n_fused = fuse_close_points(self.state, cfg)
             if n_fused:
                 stats["n_fused"] = n_fused
         return stats
@@ -917,22 +932,22 @@ class CoSlamEngine:
         budget_low = int(n_mapped.sum()) < p.n_max_map_pts
         decrease = bool(np.any(n_inl < 0.8 * np.maximum(self._kf_inliers, 1)))
         decrease = decrease and since >= max(1, p.intercam_map_interval // 2)
-        t0 = time.perf_counter()
-        if (since >= p.intercam_map_interval and budget_low) or decrease:
-            for cams in group_camera_tuples(self.group_id):
-                mp, tr, nn = intercam_map_group(self.state, self._level0(pyr),
-                                                self.K, self.kc, cams,
-                                                self.cfg)
-                self.state = self.state._replace(mappts=mp, tracks=tr)
-                n_inter += int(nn)
-            self._last_intercam = self.frame
-        t0 = self._tick("cad_icmap", t0)
-        if self.frame - self._last_register >= p.intercam_map_interval:
-            self._last_register = self.frame
-            self.state, _ = register_map_points(
-                self.state, self._level0(pyr), self.K, self.cfg,
-                max_age=p.num_act_frames)
-        self._tick("cad_register", t0)
+        with self._stage("engine.intercam_map", "cad_icmap"):
+            if (since >= p.intercam_map_interval and budget_low) or decrease:
+                for cams in group_camera_tuples(self.group_id):
+                    mp, tr, nn = intercam_map_group(
+                        self.state, self._level0(pyr), self.K, self.kc, cams,
+                        self.cfg)
+                    self.state = self.state._replace(mappts=mp, tracks=tr)
+                    with span("engine.wait.intercam_count", self.frame):
+                        n_inter += int(nn)
+                self._last_intercam = self.frame
+        with self._stage("engine.register", "cad_register"):
+            if self.frame - self._last_register >= p.intercam_map_interval:
+                self._last_register = self.frame
+                self.state, _ = register_map_points(
+                    self.state, self._level0(pyr), self.K, self.cfg,
+                    max_age=p.num_act_frames)
         return n_inter
 
     def _host_scan(self):
@@ -944,7 +959,8 @@ class CoSlamEngine:
             arr = host_scan_device(
                 self.state, self.K, self.cfg.image_height,
                 self.cfg.image_width, self.cfg.p.loop_dormant_age)
-            arr = arr.cpu().numpy()
+            with self._stage("engine.wait.host_scan"):
+                arr = arr.cpu().numpy()
             self._scan_cache = (arr[:, :C], arr[:, C:2 * C],
                                 arr[:, 2 * C:3 * C], arr[:, 3 * C],
                                 arr[:, 3 * C + 1])
@@ -1171,8 +1187,9 @@ class CoSlamEngine:
             else:
                 KF = self.state.kfs.frame.shape[0]
                 kf_idx = (len(self.kf_frames) - 1) % KF
-                Rt = _pack_rt(self.state.kfs.R[kf_idx],
-                              self.state.kfs.t[kf_idx]).cpu().numpy()
+                with self._stage("engine.wait.kf_pose"):
+                    Rt = _pack_rt(self.state.kfs.R[kf_idx],
+                                  self.state.kfs.t[kf_idx]).cpu().numpy()
             self._kf_pose_host = (Rt[..., :3].copy(), Rt[..., 3].copy())
         R_kf, t_kf = self._kf_pose_host
         R_cur, t_cur = self._pose_host()
@@ -1196,18 +1213,22 @@ class CoSlamEngine:
         cfg = self.cfg
         if self._pending_ba is not None:
             self._apply_pending_ba()
-        prob, ring, kf_ok = steps.build_ba_table(self.state, self.K, cfg,
-                                                 window=window)
+        with self._stage("ba.build_table"):
+            prob, ring, kf_ok = steps.build_ba_table(self.state, self.K, cfg,
+                                                     window=window)
         self.ba_runs += 1
         if self.async_ba and not sync:
             self._pending_ba = self._dispatch_ba(prob, ring, kf_ok)
             return
-        self.state = steps.apply_ba_table_results(
-            self.state, self._solve_ba(prob), ring, kf_ok, cfg)
+        res = self._solve_ba(prob)
+        with self._stage("ba.apply"):
+            self.state = steps.apply_ba_table_results(
+                self.state, res, ring, kf_ok, cfg)
         self._pose_host_cache = None
         self._kf_pose_host = None
         self._prefetch_poses()
 
+    @span("ba.solve")
     def _solve_ba(self, prob):
         p = self.cfg.p
         return bundle_adjust_table(prob, max_err=p.max_err,
@@ -1271,9 +1292,10 @@ class CoSlamEngine:
             torch.cuda.current_stream(self.device).wait_event(pb["done"])
         if self._ba_dev != self.device:
             res = self._result_home(res, pb["done"])
-        self.state = steps.apply_ba_table_results(
-            self.state, res, pb["ring"], pb["kf_ok"], self.cfg,
-            gen0=pb["gen0"])
+        with self._stage("ba.apply"):
+            self.state = steps.apply_ba_table_results(
+                self.state, res, pb["ring"], pb["kf_ok"], self.cfg,
+                gen0=pb["gen0"])
         self._pose_host_cache = None
         self._kf_pose_host = None
         self._prefetch_poses()
@@ -1322,14 +1344,16 @@ class CoSlamEngine:
         both = torch.stack([
             _pack_rt(self.state.R, self.state.t),
             _pack_rt(self.state.kfs.R[kf_idx], self.state.kfs.t[kf_idx])])
-        both = both.cpu().numpy()
+        with self._stage("engine.wait.prefetch_poses"):
+            both = both.cpu().numpy()
         self._pose_prefetch, self._kf_prefetch = both[0], both[1]
 
     def _store_dynamic_snapshot(self, frame: Optional[int] = None):
         """The alive dynamic points as a log entry (storeDynamicPoints),
         pulled from the device: the non-fused path's snapshot."""
         mp = self.state.mappts
-        status, ptype, xyz = to_host(mp.status, mp.ptype, mp.xyz)
+        with self._stage("engine.wait.dyn_snapshot"):
+            status, ptype, xyz = to_host(mp.status, mp.ptype, mp.xyz)
         dyn = (status == ST_ALIVE) & (ptype == PT_DYNAMIC)
         ids = np.nonzero(dyn)[0]
         if len(ids):
@@ -1342,7 +1366,8 @@ class CoSlamEngine:
             if self._pose_prefetch is not None:
                 Rt, self._pose_prefetch = self._pose_prefetch, None
             else:
-                Rt = _pack_rt(self.state.R, self.state.t).cpu().numpy()
+                with self._stage("engine.wait.pose_host"):
+                    Rt = _pack_rt(self.state.R, self.state.t).cpu().numpy()
             self._pose_host_cache = (Rt[..., :3].copy(), Rt[..., 3].copy())
         return self._pose_host_cache
 

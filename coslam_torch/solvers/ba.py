@@ -34,6 +34,7 @@ import torch
 from coslam_torch.geometry.robust import huber_weight, tukey_weight
 from coslam_torch.geometry.se3 import orthonormalize_fast, se3_exp, so3_hat
 from coslam_torch.geometry.triangulate import inv3x3_sym, inv3x3_sym_ln
+from coslam_torch.spans import span
 
 
 class BATableProblem(NamedTuple):
@@ -226,20 +227,23 @@ def bundle_adjust_table(prob, max_err: float = 10.0, max_iter: int = 2,
         for _ in range(inner_iter):
             Rs, ts = red.to_shards(R, "ba.R"), red.to_shards(t, "ba.t")
             lams = red.to_shards(lam, "ba.lam")
-            terms = [_table_terms(s.K, Rk, tk, Xk, s.obs_px, wk)
-                     for s, Rk, tk, Xk, wk in zip(shards, Rs, ts, X, w)]
-            elims = [_table_eliminate(Wcp, Hpp, gp, lk, s.point_fixed)
-                     for (_, _, Wcp, Hpp, gp, _), lk, s
-                     in zip(terms, lams, shards)]
-            Hcc = red.sum([tm[0] for tm in terms], "ba.Hcc")
-            gc = red.sum([tm[1] for tm in terms], "ba.gc")
-            cost = red.sum([tm[5] for tm in terms], "ba.cost")
-            Sred = red.sum([e[0] for e in elims], "ba.Sred")
-            Ygp = red.sum([e[1] for e in elims], "ba.Ygp")
-            dc = _table_camera_step(Hcc, gc, Sred, Ygp, lam, p0.cam_fixed)
-            dcs = red.to_shards(dc, "ba.dc")
-            dX = [_table_back_substitute(e[2], dck)
-                  for e, dck in zip(elims, dcs)]
+            with span("ba.normal_terms"):
+                terms = [_table_terms(s.K, Rk, tk, Xk, s.obs_px, wk)
+                         for s, Rk, tk, Xk, wk in zip(shards, Rs, ts, X, w)]
+            with span("ba.schur_solve"):
+                elims = [_table_eliminate(Wcp, Hpp, gp, lk, s.point_fixed)
+                         for (_, _, Wcp, Hpp, gp, _), lk, s
+                         in zip(terms, lams, shards)]
+                Hcc = red.sum([tm[0] for tm in terms], "ba.Hcc")
+                gc = red.sum([tm[1] for tm in terms], "ba.gc")
+                cost = red.sum([tm[5] for tm in terms], "ba.cost")
+                Sred = red.sum([e[0] for e in elims], "ba.Sred")
+                Ygp = red.sum([e[1] for e in elims], "ba.Ygp")
+                dc = _table_camera_step(Hcc, gc, Sred, Ygp, lam,
+                                        p0.cam_fixed)
+                dcs = red.to_shards(dc, "ba.dc")
+                dX = [_table_back_substitute(e[2], dck)
+                      for e, dck in zip(elims, dcs)]
             finite = torch.all(torch.isfinite(dc)) & red.all(
                 [torch.all(torch.isfinite(d)) for d in dX], "ba.finite")
             dc = torch.where(finite & ~p0.cam_fixed[:, None], dc, zero)
